@@ -1,0 +1,722 @@
+"""RankFM on PyTorch (port of `rankfm_tpu/models/rankfm.py`).
+
+Same constructor hyperparameters, assert messages and exception types, and
+the same public methods (`fit`, `fit_partial`, `predict`, `recommend`,
+`similar_items`, `similar_users`). Weights are a dict of tensors on the
+model's device (keyword-only ``device``, default ``'cuda'``). Training runs
+the fused WARP/BPR engine (`rankfm_tpu_torch.ops.fused`): its chunk step is
+the CUDA kernel on a GPU and the kernel's plain version on the CPU.
+
+Not ported yet (each raises or is absent until its ROADMAP item lands):
+checkpoints (`save`/`load`), the native C++ ingest, the XLA window and
+candidate engines with the mixed schedule, side features in training, and
+mesh placement.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import pandas as pd
+import torch
+
+from rankfm_tpu_torch.models.planner import FitSpec, plan_fit
+from rankfm_tpu_torch.ops import fused as fused_mod
+from rankfm_tpu_torch.ops import scoring, topk
+from rankfm_tpu_torch.ops.negatives import build_bitmap_words
+from rankfm_tpu_torch.utils.convert import weights_to_numpy
+from rankfm_tpu_torch.utils.data import (
+    build_index,
+    build_user_items_csr,
+    csr_to_dict,
+    get_data,
+    map_ids_float,
+    map_interactions,
+    merge_user_items_csr,
+    remap_indices,
+    validate_features,
+)
+
+_WEIGHT_NAMES = ("w_i", "w_if", "v_u", "v_i", "v_uf", "v_if")
+
+
+def _recommend_chunk(num_items):
+    """User-chunk size for top-N retrieval: bounded so the [chunk, I] score
+    matrix stays ~1 GB even for million-item catalogs."""
+    return int(min(4096, max(256, 2**28 // max(num_items, 1))))
+
+
+def _ll_guard(ll, tensors):
+    """The epoch log-likelihood, or NaN when ANY table holds a non-finite
+    value. Non-finite weights stay non-finite under the SGD update, so a
+    later check of one guarded ll catches a divergence at whatever epoch it
+    happened, without a host sync per epoch."""
+    ok = torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    return torch.where(ok, ll, torch.full_like(ll, float("nan")))
+
+
+class _FitRun:
+    """One ``fit_partial`` execution: epoch scheduling, the per-epoch
+    training log, the lagged divergence check and the fused engine's epochs.
+    Every regime decision arrives pre-resolved in a `FitPlan`."""
+
+    def __init__(self, model, plan, verbose):
+        self.m = model
+        self.plan = plan
+        self.verbose = verbose
+        self.n = len(model.interactions)
+        self.U = len(model.user_idx)
+        self.I = len(model.item_idx)
+        self.F = model.factors
+        # the epoch stream continues across fit_partial calls (a warm-start
+        # loop must not replay the same shuffle/negative stream); the eta
+        # schedule restarts per call
+        self.rng_off = model._epoch_offset
+        self.epoch_lls = []
+        self.epoch_secs = []
+        # pulls the packed tables back into model._w (set while training)
+        self.pull = None
+        self.t0 = time.time()
+
+    def eta(self, epoch):
+        m = self.m
+        if m.learning_schedule == 'constant':
+            return m.learning_rate
+        return m.learning_rate / (epoch + 1) ** m.learning_exponent
+
+    def _raise_divergence(self, first_bad):
+        m = self.m
+        m._abort_epoch = first_bad  # first non-finite epoch index
+        m._abort_detected_at = len(self.epoch_lls)  # epochs dispatched
+        if self.pull is not None:
+            self.pull()
+        m._assert_finite()  # names the offending tensor; raises
+        raise AssertionError(
+            "log likelihood is not finite - try decreasing "
+            "feature/sample_weight magnitudes")
+
+    def _check_lls(self, vals):
+        for e, v in enumerate(vals):
+            if not np.isfinite(v):
+                self._raise_divergence(e)
+
+    def log_epoch(self, epoch, ll, dt):
+        self.epoch_lls.append(ll)
+        self.epoch_secs.append(dt)
+        if self.verbose:
+            self.pull()
+            self.m._assert_finite()
+            penalty = self.m._reg_penalty()
+            print("\ntraining epoch:", epoch)
+            print("log likelihood:", round(float(ll) - penalty, 2))
+        elif len(self.epoch_lls) % 4 == 0:
+            # lagged divergence poll: read the guarded ll of 3 epochs ago
+            # (long finished on the device), so the queue stays 2 epochs deep
+            if not math.isfinite(float(self.epoch_lls[-3])):
+                self._check_lls([float(x) for x in self.epoch_lls])
+
+    def finish(self):
+        lls = [float(x) for x in self.epoch_lls]  # syncs
+        self._check_lls(lls)  # raises at the FIRST bad epoch index
+        if not self.verbose and self.epoch_secs:
+            # epochs were only enqueued: report the synced average instead
+            avg = (time.time() - self.t0) / len(self.epoch_secs)
+            self.epoch_secs[:] = [avg] * len(self.epoch_secs)
+        for epoch, (llv, dt) in enumerate(zip(lls, self.epoch_secs)):
+            self.m.training_log_.append({
+                "epoch": epoch, "eta": self.eta(epoch), "log_likelihood": llv,
+                "seconds": dt,
+                "interactions_per_s": self.n / dt if dt > 0 else float("inf"),
+            })
+
+    def run(self):
+        self.run_fused()
+        self.finish()
+
+    def run_fused(self):
+        m, plan = self.m, self.plan
+        U, num_items, F = self.U, self.I, self.F
+        dev = m.device
+        I_pad = fused_mod.item_pad(num_items)
+        if m._packed_hist is None:
+            m._packed_hist = torch.from_numpy(fused_mod.pack_history(
+                m._ui_offsets, m._ui_items, U, num_items)).to(dev)
+        packed = m._packed_hist
+
+        def layout_for(chunk, ub):
+            rec, group, cids, ublk, iblk = fused_mod.make_records_grouped(
+                m.interactions[:, 0], m.interactions[:, 1], m.sample_weight,
+                U, num_items, plan.batch_size, chunk, ub=ub)
+            return (torch.from_numpy(rec).to(dev), torch.from_numpy(group),
+                    torch.from_numpy(cids), torch.from_numpy(ublk),
+                    torch.from_numpy(iblk))
+
+        w = m._w
+        tab_u, tab_i = fused_mod.extend_tables(
+            w["w_i"], w["v_u"], w["v_i"],
+            fused_mod.user_pad(U, plan.user_block), I_pad)
+
+        def pull_back():
+            w_i, v_u, v_i = fused_mod.extract_tables(
+                tab_u, tab_i, U, num_items, F)
+            m._w = dict(m._w, w_i=w_i, v_u=v_u, v_i=v_i)
+
+        self.pull = pull_back
+
+        def run_epochs(epochs, chunk, ub, layout):
+            for epoch in epochs:
+                t0 = time.time()
+                ll = fused_mod.fused_epoch(
+                    tab_u, tab_i, packed, layout, self.eta(epoch), m.alpha,
+                    m.seed, self.rng_off + epoch, num_users=U,
+                    num_items=num_items, factors=F,
+                    max_samples=plan.max_samples,
+                    batch_size=plan.batch_size, chunk=chunk, ub=ub,
+                    n_windows=plan.n_windows)
+                self.log_epoch(epoch, _ll_guard(ll, (tab_u, tab_i)),
+                               time.time() - t0)
+
+        # chunk-tail schedule: the closing epochs run at the oracle-parity
+        # layout (tail_chunk rows @ tail_user_block users), which pads the
+        # user table differently — the live tables are re-extended
+        n_ct = plan.chunk_tail
+        run_epochs(range(plan.n_main - n_ct), plan.chunk, plan.user_block,
+                   layout_for(plan.chunk, plan.user_block))
+        if n_ct:
+            ub_t = plan.tail_user_block
+            w_i, v_u, v_i = fused_mod.extract_tables(
+                tab_u, tab_i, U, num_items, F)
+            tab_u, tab_i = fused_mod.extend_tables(
+                w_i, v_u, v_i, fused_mod.user_pad(U, ub_t), I_pad)
+            run_epochs(range(plan.n_main - n_ct, plan.n_main),
+                       plan.tail_chunk, ub_t,
+                       layout_for(plan.tail_chunk, ub_t))
+        pull_back()
+
+
+class RankFM:
+    """Factorization Machines for Ranking Problems with Implicit Feedback Data"""
+
+    def __init__(self, factors=10, loss='bpr', max_samples=10, alpha=0.01, beta=0.1,
+                 sigma=0.1, learning_rate=0.1, learning_schedule='constant',
+                 learning_exponent=0.25, *, batch_size=None, seed=1492,
+                 sample_rounds='auto', neg_sampler='auto', use_fused='auto',
+                 train_step='auto', n_windows=None, tail_windows=None,
+                 shuffle_layouts='auto', mesh=None, dp_sync_every=1,
+                 device='cuda'):
+        """store hyperparameters and initialize internal model state
+
+        :param factors: latent factor rank
+        :param loss: optimization/loss function to use for training: ['bpr', 'warp']
+        :param max_samples: maximum number of negative samples to draw for WARP loss
+        :param alpha: L2 regularization penalty on [user, item] model weights
+        :param beta: L2 regularization penalty on [user-feature, item-feature] model weights
+        :param sigma: standard deviation to use for random initialization of factor weights
+        :param learning_rate: initial learning rate for gradient step updates
+        :param learning_schedule: schedule for adjusting learning rates by training epoch: ['constant', 'invscaling']
+        :param learning_exponent: exponent applied to epoch number to adjust learning rate: scaling = 1 / pow(epoch + 1, learning_exponent)
+
+        Keyword-only extras, as in `rankfm_tpu.RankFM` (see its docstring
+        for each), plus:
+
+        :param device: torch device of the weights and of training
+            ('cuda' by default; 'cpu' runs the fused engine's plain version)
+        """
+
+        # validate user input
+        assert isinstance(factors, int) and factors >= 1, "[factors] must be a positive integer"
+        assert isinstance(loss, str) and loss in ('bpr', 'warp'), "[loss] must be in ('bpr', 'warp')"
+        assert isinstance(max_samples, int) and max_samples > 0, "[max_samples] must be a positive integer"
+        assert isinstance(alpha, float) and alpha > 0.0, "[alpha] must be a positive float"
+        assert isinstance(beta, float) and beta > 0.0, "[beta] must be a positive float"
+        assert isinstance(sigma, float) and sigma > 0.0, "[sigma] must be a positive float"
+        assert isinstance(learning_rate, float) and learning_rate > 0.0, "[learning_rate] must be a positive float"
+        assert isinstance(learning_schedule, str) and learning_schedule in ('constant', 'invscaling'), "[learning_schedule] must be in ('constant', 'invscaling')"
+        assert isinstance(learning_exponent, float) and learning_exponent > 0.0, "[learning_exponent] must be a positive float"
+
+        self.factors = factors
+        self.loss = loss
+        self.max_samples = max_samples
+        self.alpha = alpha
+        self.beta = beta
+        self.sigma = sigma
+        self.learning_rate = learning_rate
+        self.learning_schedule = learning_schedule
+        self.learning_exponent = learning_exponent
+
+        assert neg_sampler in ('auto', 'bitmap', 'bsearch'), \
+            "[neg_sampler] must be in ('auto', 'bitmap', 'bsearch')"
+        assert sample_rounds == 'auto' or (
+            isinstance(sample_rounds, int) and sample_rounds >= 1), \
+            "[sample_rounds] must be 'auto' or a positive integer"
+        assert use_fused in (True, False, 'auto'), \
+            "[use_fused] must be in (True, False, 'auto')"
+        assert train_step in ('auto', 'window', 'candidate', 'mixed'), \
+            "[train_step] must be in ('auto', 'window', 'candidate', 'mixed')"
+        assert n_windows is None or (
+            isinstance(n_windows, int) and n_windows >= 1), \
+            "[n_windows] must be None or a positive integer"
+        assert tail_windows is None or (
+            isinstance(tail_windows, int) and tail_windows >= 1), \
+            "[tail_windows] must be None or a positive integer"
+        assert shuffle_layouts == 'auto' or (
+            isinstance(shuffle_layouts, int) and shuffle_layouts >= 1), \
+            "[shuffle_layouts] must be 'auto' or a positive integer"
+        assert isinstance(dp_sync_every, int) and dp_sync_every >= 1, \
+            "[dp_sync_every] must be a positive integer"
+        self.train_step = train_step
+        self.n_windows = n_windows
+        self.tail_windows = tail_windows
+        self.shuffle_layouts = shuffle_layouts
+        self.dp_sync_every = dp_sync_every
+        self.batch_size = batch_size
+        self.seed = seed
+        self.sample_rounds = sample_rounds
+        self.neg_sampler = neg_sampler
+        self.use_fused = use_fused
+        self.mesh = mesh
+        self.device = torch.device(device)
+
+        self._reset_state()
+
+    # --------------------------------
+    # private methods
+    # --------------------------------
+
+    def _reset_state(self):
+        """initialize or reset internal model state"""
+
+        self.user_id = None
+        self.item_id = None
+        self.user_idx = None
+        self.item_idx = None
+
+        self.index_to_user = None
+        self.index_to_item = None
+        self.user_to_index = None
+        self.item_to_index = None
+
+        self.interactions = None
+        self.sample_weight = None
+
+        # CSR user -> sorted distinct item history (host numpy)
+        self._ui_offsets = None
+        self._ui_items = None
+
+        self.x_uf = None
+        self.x_if = None
+
+        # weights: dict of tensors on self.device (w_i, w_if, v_u, v_i, v_uf, v_if)
+        self._w = None
+        self._x_uf_dev = None
+        self._x_if_dev = None
+        self._sampler = None
+        self._bitmap_dev = None
+        self._packed_hist = None
+
+        self._user_items_view = None
+        self._sim_cache = {}
+        self._epoch_offset = 0  # epoch stream position across fit_partial
+
+        # structured per-epoch training log
+        self.training_log_ = []
+        self.last_fit_plan_ = None
+
+        self.is_fit = False
+
+    # -- weight views (numpy copies on the host) --
+
+    @property
+    def _weights(self):
+        """The weights as host numpy arrays, keyed as in `rankfm_tpu`."""
+        return None if self._w is None else weights_to_numpy(self._w)
+
+    def _np_weight(self, name):
+        return None if self._w is None else self._w[name].cpu().numpy()
+
+    @property
+    def w_i(self):
+        return self._np_weight("w_i")
+
+    @property
+    def w_if(self):
+        return self._np_weight("w_if")
+
+    @property
+    def v_u(self):
+        return self._np_weight("v_u")
+
+    @property
+    def v_i(self):
+        return self._np_weight("v_i")
+
+    @property
+    def v_uf(self):
+        return self._np_weight("v_uf")
+
+    @property
+    def v_if(self):
+        return self._np_weight("v_if")
+
+    @property
+    def user_items(self):
+        """dict view of per-user item histories, cached"""
+        if self._ui_offsets is None:
+            return None
+        if self._user_items_view is None:
+            self._user_items_view = csr_to_dict(
+                self._ui_offsets, self._ui_items)
+        return self._user_items_view
+
+    def _init_all(self, interactions, user_features=None, item_features=None, sample_weight=None):
+        """index interactions/features and initialize weights"""
+
+        assert isinstance(interactions, (np.ndarray, pd.DataFrame)), "[interactions] must be np.ndarray or pd.dataframe"
+        assert interactions.shape[1] == 2, "[interactions] should be: [user_id, item_id]"
+
+        arr = get_data(interactions)
+        self.user_id, self.user_to_index = build_index(arr[:, 0])
+        self.item_id, self.item_to_index = build_index(arr[:, 1])
+        self.index_to_user = self.user_id
+        self.index_to_item = self.item_id
+        self.user_idx = np.arange(len(self.user_id), dtype=np.int32)
+        self.item_idx = np.arange(len(self.item_id), dtype=np.int32)
+
+        self._init_interactions(interactions, sample_weight)
+        self._init_features(user_features, item_features)
+        self._init_weights(user_features, item_features)
+
+    def _init_interactions(self, interactions, sample_weight):
+        """map new interactions to the existing internal indexes
+
+        Unknown (user, item) pairs are silently dropped; ``sample_weight`` rows
+        for dropped pairs are dropped with them.
+        """
+
+        assert isinstance(interactions, (np.ndarray, pd.DataFrame)), "[interactions] must be np.ndarray or pd.dataframe"
+        assert interactions.shape[1] == 2, "[interactions] should be: [user_id, item_id]"
+
+        pairs, keep = map_interactions(interactions, self.user_to_index, self.item_to_index)
+        self.interactions = pairs
+        offsets, items = build_user_items_csr(pairs, len(self.user_idx))
+        if self.is_fit:
+            # fit_partial: union with previous histories
+            offsets, items = merge_user_items_csr(
+                self._ui_offsets, self._ui_items, offsets, items, len(self.user_idx))
+
+        if sample_weight is not None:
+            assert isinstance(sample_weight, (np.ndarray, pd.Series)), "[sample_weight] must be np.ndarray or pd.series"
+            assert sample_weight.ndim == 1, "[sample_weight] must a vector (ndim=1)"
+            assert len(sample_weight) == len(interactions), "[sample_weight] must have the same length as [interactions]"
+            self.sample_weight = np.ascontiguousarray(get_data(sample_weight)[keep], dtype=np.float32)
+        else:
+            self.sample_weight = np.ones(len(self.interactions), dtype=np.float32)
+        self._ui_offsets, self._ui_items = offsets, items
+        self._packed_hist = None  # history changed: rebuild lazily
+        self._user_items_view = None
+
+        # retrieval filters seen items through the packed bitmap when it
+        # fits in ~512 MB, else by scattering the seen pairs
+        U, I = len(self.user_idx), len(self.item_idx)
+        words = (I + 31) // 32
+        if self.neg_sampler == 'bitmap' or (
+                self.neg_sampler == 'auto' and U * words * 4 <= 512 * 2**20):
+            self._sampler = 'bitmap'
+        else:
+            self._sampler = 'bsearch'
+        self._bitmap_dev = None
+
+    def _ensure_bitmap(self):
+        """The packed membership bitmap (int32 words) on first use."""
+        if self._bitmap_dev is None:
+            bm = build_bitmap_words(self._ui_offsets, self._ui_items,
+                                    len(self.user_idx), len(self.item_idx))
+            self._bitmap_dev = torch.from_numpy(bm.view(np.int32)).to(self.device)
+        return self._bitmap_dev
+
+    def _init_features(self, user_features=None, item_features=None):
+        """store user/item feature matrices row-ordered by index"""
+
+        if user_features is not None:
+            self.x_uf = validate_features(user_features, self.user_to_index, self.user_idx, "user")
+        else:
+            self.x_uf = np.zeros([len(self.user_idx), 1], dtype=np.float32)
+
+        if item_features is not None:
+            self.x_if = validate_features(item_features, self.item_to_index, self.item_idx, "item")
+        else:
+            self.x_if = np.zeros([len(self.item_idx), 1], dtype=np.float32)
+
+        self._x_uf_dev = torch.from_numpy(self.x_uf).to(self.device)
+        self._x_if_dev = torch.from_numpy(self.x_if).to(self.device)
+
+    def _init_weights(self, user_features=None, item_features=None):
+        """initialize model weights: biases zero, factors ~ N(0, sigma),
+        feature factors ~ N(0, (alpha/beta)*sigma) when features are
+        supplied else zero. The draws come from a generator seeded with
+        ``self.seed``, so they equal `rankfm_tpu`'s bit for bit."""
+
+        U, I, F = len(self.user_idx), len(self.item_idx), self.factors
+        P, Q = self.x_uf.shape[1], self.x_if.shape[1]
+        rng = np.random.default_rng(self.seed)
+
+        w_i = np.zeros(I, dtype=np.float32)
+        w_if = np.zeros(Q, dtype=np.float32)
+        v_u = rng.normal(0, self.sigma, (U, F)).astype(np.float32)
+        v_i = rng.normal(0, self.sigma, (I, F)).astype(np.float32)
+
+        feat_scale = (self.alpha / self.beta) * self.sigma
+        if user_features is not None:
+            v_uf = rng.normal(0, feat_scale, (P, F)).astype(np.float32)
+        else:
+            v_uf = np.zeros((P, F), dtype=np.float32)
+        if item_features is not None:
+            v_if = rng.normal(0, feat_scale, (Q, F)).astype(np.float32)
+        else:
+            v_if = np.zeros((Q, F), dtype=np.float32)
+
+        w = {"w_i": w_i, "w_if": w_if, "v_u": v_u, "v_i": v_i,
+             "v_uf": v_uf, "v_if": v_if}
+        self._w = {k: torch.from_numpy(w[k]).to(self.device) for k in _WEIGHT_NAMES}
+
+    def _assert_finite(self):
+        """divergence guard: name the first non-finite weight tensor"""
+        names = {
+            "w_i": "item weights [w_i]",
+            "w_if": "item feature weights [w_if]",
+            "v_u": "user factors [v_u]",
+            "v_i": "item factors [v_i]",
+            "v_uf": "user-feature factors [v_uf]",
+            "v_if": "item-feature factors [v_if]",
+        }
+        for k, label in names.items():
+            assert bool(torch.isfinite(self._w[k]).all()), \
+                f"{label} are not finite - try decreasing feature/sample_weight magnitudes"
+
+    def _reg_penalty(self):
+        """total L2 penalty over all weights"""
+        w = self._w
+        pen = 0.0
+        for k in ("w_i", "v_u", "v_i"):
+            pen += self.alpha * float(torch.sum(torch.square(w[k])))
+        for k in ("w_if", "v_uf", "v_if"):
+            pen += self.beta * float(torch.sum(torch.square(w[k])))
+        return pen
+
+    # --------------------------------
+    # public methods
+    # --------------------------------
+
+    def fit(self, interactions, user_features=None, item_features=None,
+            sample_weight=None, epochs=1, verbose=False):
+        """clear previous model state and learn new model weights using the input data
+
+        :param interactions: dataframe of observed user/item interactions: [user_id, item_id]
+        :param user_features: dataframe of user metadata features: [user_id, uf_1, ..., uf_n]
+        :param item_features: dataframe of item metadata features: [item_id, if_1, ..., if_n]
+        :param sample_weight: vector of importance weights for each observed interaction
+        :param epochs: number of training epochs (full passes through observed interactions)
+        :param verbose: whether to print epoch number and log-likelihood during training
+        :return: self
+        """
+        self._reset_state()
+        self.fit_partial(interactions, user_features, item_features, sample_weight, epochs, verbose)
+        return self
+
+    def fit_partial(self, interactions, user_features=None, item_features=None,
+                    sample_weight=None, epochs=1, verbose=False):
+        """learn or update model weights resuming from the current state
+
+        The regime decisions are resolved by the pure planner
+        (`rankfm_tpu_torch.models.planner.plan_fit`); the resolved `FitPlan`
+        is exposed as ``self.last_fit_plan_``.
+        """
+
+        assert isinstance(epochs, int) and epochs >= 1, "[epochs] must be a positive integer"
+        assert isinstance(verbose, bool), "[verbose] must be a boolean value"
+
+        if self.is_fit:
+            self._init_interactions(interactions, sample_weight)
+            self._init_features(user_features, item_features)
+            for side, x, vf in (("user", self.x_uf, self._w["v_uf"]),
+                                ("item", self.x_if, self._w["v_if"])):
+                assert x.shape[1] == vf.shape[0], (
+                    f"[{side}_features] column count changed since fit() "
+                    f"({x.shape[1]} vs {vf.shape[0]}): feature weights are "
+                    "frozen across fit_partial - call fit() to rebuild them")
+        else:
+            self._init_all(interactions, user_features, item_features, sample_weight)
+
+        sw = self.sample_weight
+        spec = FitSpec(
+            n=len(self.interactions),
+            num_users=len(self.user_idx), num_items=len(self.item_idx),
+            factors=self.factors, loss=self.loss,
+            max_samples=self.max_samples, epochs=epochs,
+            x_uf_any=bool(self.x_uf.any()), x_if_any=bool(self.x_if.any()),
+            num_uf=self.x_uf.shape[1], num_if=self.x_if.shape[1],
+            nnz_hist=len(self._ui_items),
+            mean_sample_weight=float(np.mean(sw)) if len(sw) else 1.0,
+            # the fused engine runs on every device the port supports: the
+            # CUDA kernel on a GPU, its plain version on the CPU
+            on_gpu=True, mesh=self.mesh,
+            table_bytes=sum(int(np.prod(v.shape)) * 4 for v in self._w.values()),
+            batch_size=self.batch_size, train_step=self.train_step,
+            use_fused=self.use_fused, n_windows=self.n_windows,
+            tail_windows=self.tail_windows, sample_rounds=self.sample_rounds,
+            shuffle_layouts=self.shuffle_layouts,
+        )
+        plan = plan_fit(spec)
+        self.last_fit_plan_ = plan
+        _FitRun(self, plan, verbose).run()
+
+        self._epoch_offset += epochs  # fresh streams on the next fit_partial
+        self._sim_cache = {}  # weights changed: cached latent reps are stale
+        self.is_fit = True
+        return self
+
+    def predict(self, pairs, cold_start='nan'):
+        """calculate the predicted pointwise utilities for all (user, item) pairs
+
+        :param pairs: dataframe of [user, item] pairs to score
+        :param cold_start: 'nan' to emit NaN for unseen users/items, 'drop' to remove them
+        :return: np.array of real-valued model scores (float32)
+        """
+        assert isinstance(pairs, (np.ndarray, pd.DataFrame)), "[pairs] must be np.ndarray or pd.dataframe"
+        assert pairs.shape[1] == 2, "[pairs] should be: [user_id, item_id]"
+        assert self.is_fit, "you must fit the model prior to generating predictions"
+
+        arr = get_data(pairs)
+        u = map_ids_float(arr[:, 0], self.user_to_index)
+        i = map_ids_float(arr[:, 1], self.item_to_index)
+        known = ~(np.isnan(u) | np.isnan(i))
+        u_idx = torch.from_numpy(np.where(known, u, 0).astype(np.int64)).to(self.device)
+        i_idx = torch.from_numpy(np.where(known, i, 0).astype(np.int64)).to(self.device)
+        scores = scoring.score_pairs(self._w, self._x_uf_dev, self._x_if_dev,
+                                     u_idx, i_idx).cpu().numpy()
+        scores = np.where(known, scores, np.nan).astype(np.float32)
+
+        if cold_start == 'nan':
+            return scores
+        elif cold_start == 'drop':
+            return scores[~np.isnan(scores)]
+        else:
+            raise ValueError("param [cold_start] must be set to either 'nan' or 'drop'")
+
+    def _seen_pairs_for(self, user_idx_batch):
+        """host-side (row, col) pairs of previously seen items for a user batch"""
+        starts = self._ui_offsets[user_idx_batch].astype(np.int64)
+        ends = self._ui_offsets[user_idx_batch + 1].astype(np.int64)
+        lens = ends - starts
+        total = int(lens.sum())
+        if total == 0:
+            return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int32)
+        rows = np.repeat(np.arange(len(user_idx_batch), dtype=np.int32), lens)
+        seg_start = np.repeat(starts, lens)
+        cum = np.repeat(np.cumsum(lens) - lens, lens)
+        cols = self._ui_items[seg_start + (np.arange(total) - cum)]
+        return rows, cols.astype(np.int32)
+
+    def recommend(self, users, n_items=10, filter_previous=False, cold_start='nan'):
+        """calculate the topN items for each user
+
+        :param users: iterable of user identifiers for which to generate recommendations
+        :param n_items: number of recommended items to generate for each user
+        :param filter_previous: remove observed training items from generated recommendations
+        :param cold_start: 'nan' to emit NaN rows for unseen users, 'drop' to remove them
+        :return: pandas dataframe indexed by user id with recommended items as columns
+        """
+        assert getattr(users, '__iter__', False), "[users] must be an iterable (e.g. list, array, series)"
+        assert self.is_fit, "you must fit the model prior to generating recommendations"
+
+        users_arr = pd.Series(users).values
+        user_idx = map_ids_float(users_arr, self.user_to_index)
+        known = ~np.isnan(user_idx)
+        known_idx = user_idx[known].astype(np.int64)
+
+        # can't recommend more items than the catalog holds
+        n_items = min(int(n_items), len(self.item_idx))
+        use_bitmap_filter = filter_previous and self._sampler == 'bitmap'
+
+        out = np.full((len(user_idx), n_items), np.nan, dtype=np.float64)
+        if len(known_idx):
+            chunks = []
+            chunk_sz = _recommend_chunk(len(self.item_idx))
+            no_seen = torch.zeros(0, dtype=torch.int64, device=self.device)
+            for s in range(0, len(known_idx), chunk_sz):
+                batch = known_idx[s:s + chunk_sz]
+                u_dev = torch.from_numpy(batch).to(self.device)
+                if use_bitmap_filter:
+                    top_items, _ = topk.topk_bitmap(
+                        self._w, self._x_uf_dev, self._x_if_dev, u_dev,
+                        n_items, self._ensure_bitmap())
+                else:
+                    rows = cols = no_seen
+                    if filter_previous:
+                        r, c = self._seen_pairs_for(batch)
+                        rows = torch.from_numpy(r.astype(np.int64)).to(self.device)
+                        cols = torch.from_numpy(c.astype(np.int64)).to(self.device)
+                    top_items, _ = topk.topk_for_users(
+                        self._w, self._x_uf_dev, self._x_if_dev, u_dev,
+                        n_items, rows, cols)
+                chunks.append(top_items.cpu().numpy())
+            out[known] = np.concatenate(chunks, axis=0)
+            # -1 = exhausted-catalog slot -> NaN, never a wrapped-around id
+            out[out < 0] = np.nan
+
+        rec_items = pd.DataFrame(
+            remap_indices(self.index_to_item.values, out),
+            index=pd.Index(users_arr),
+        )
+
+        if cold_start == 'nan':
+            return rec_items
+        elif cold_start == 'drop':
+            return rec_items.dropna(how='any')
+        else:
+            raise ValueError("param [cold_start] must be set to either 'nan' or 'drop'")
+
+    def _similar_rows(self, idx, factor_key, feat_factor_key, feats,
+                      index_map, n):
+        """top-n rows by latent-rep dot product, the search row excluded;
+        the rep matrix ``V + feats @ V_f`` is cached until the weights
+        change"""
+        reps = self._sim_cache.get(factor_key)
+        if reps is None:
+            reps = self._w[factor_key] + feats @ self._w[feat_factor_key]
+            self._sim_cache[factor_key] = reps
+        k = min(n, reps.shape[0] - 1)
+        sims = reps @ reps[idx]
+        sims[idx] = float("-inf")
+        top = torch.topk(sims, k).indices.cpu().numpy()
+        return pd.Series(top).map(index_map).values
+
+    def similar_items(self, item_id, n_items=10):
+        """find the most similar items wrt latent factor space representation
+
+        :param item_id: item to search
+        :param n_items: number of similar items to return
+        :return: np.array of topN most similar items
+        """
+        assert item_id in self.item_id.values, "you must select an [item_id] present in the training data"
+        assert self.is_fit, "you must fit the model prior to generating similarities"
+
+        item_idx = int(self.item_to_index.loc[item_id])
+        return self._similar_rows(item_idx, "v_i", "v_if", self._x_if_dev,
+                                  self.index_to_item, n_items)
+
+    def similar_users(self, user_id, n_users=10):
+        """find the most similar users wrt latent factor space representation
+
+        :param user_id: user to search
+        :param n_users: number of similar users to return
+        :return: np.array of topN most similar users
+        """
+        assert user_id in self.user_id.values, "you must select an [user_id] present in the training data"
+        assert self.is_fit, "you must fit the model prior to generating similarities"
+
+        user_idx = int(self.user_to_index.loc[user_id])
+        return self._similar_rows(user_idx, "v_u", "v_uf", self._x_uf_dev,
+                                  self.index_to_user, n_users)
