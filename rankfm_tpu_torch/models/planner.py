@@ -6,10 +6,11 @@ the same spec, field by field (``on_gpu`` here is ``on_tpu`` there: the
 backend can run the fused engine). The decision rules and their measured
 reasons are documented in the JAX package.
 
-This slice of the port runs only the pure fused engine with its
-chunk-tail. `plan_fit` raises `NotImplementedError`, naming the ROADMAP
-item, for every plan outside it: not fused, a candidate tail, a mesh,
-side features, a wide-window tail, pre-shuffled layouts.
+The port runs the fused engine (with its chunk-tail or its candidate
+tail) and the XLA window and candidate engines. `plan_fit` raises
+`NotImplementedError`, naming the ROADMAP item, for every plan outside
+that: a mesh, side features on a fused plan, a wide-window tail,
+pre-shuffled layouts.
 """
 
 from __future__ import annotations
@@ -126,7 +127,7 @@ def plan_fit(spec: FitSpec) -> FitPlan:
         raise ValueError("[loss] function not recognized")
     if spec.mesh is not None:
         raise NotImplementedError(
-            "mesh placement is not ported yet (ROADMAP queue 1, item 9: "
+            "mesh placement is not ported yet (ROADMAP queue 1, item 4: "
             "Parallel)")
 
     U, I, F = spec.num_users, spec.num_items, spec.factors
@@ -213,23 +214,15 @@ def plan_fit(spec: FitSpec) -> FitPlan:
 
 def _require_slice(spec, plan):
     """Raise `NotImplementedError` for a plan this port cannot run yet."""
-    if not plan.fused:
-        raise NotImplementedError(
-            "only the fused engine is ported; this fit needs the XLA window/"
-            "candidate engines (ROADMAP queue 1, item 6: XLA engines and "
-            "the mixed schedule)")
     if plan.tail_windows:
         raise NotImplementedError(
             "the wide-window tail is not ported (ROADMAP queue 1, "
             "deliberately not ported: tail_windows)")
-    if plan.n_tail:
-        raise NotImplementedError(
-            "this fit's plan ends with a candidate-step tail (ROADMAP queue "
-            "1, item 6: XLA engines and the mixed schedule)")
-    if spec.x_uf_any or spec.x_if_any:
+    if plan.fused and (spec.x_uf_any or spec.x_if_any):
         raise NotImplementedError(
             "side features are not ported to the fused kernel yet (ROADMAP "
-            "queue 2, B1 features)")
+            "queue 2, B1 features); use_fused=False trains them on the XLA "
+            "engines")
     if plan.shuffle_layouts > 1:
         raise NotImplementedError(
             "pre-shuffled layouts are not ported (ROADMAP queue 1, "

@@ -4,13 +4,15 @@ Same constructor hyperparameters, assert messages and exception types, and
 the same public methods (`fit`, `fit_partial`, `predict`, `recommend`,
 `similar_items`, `similar_users`). Weights are a dict of tensors on the
 model's device (keyword-only ``device``, default ``'cuda'``). Training runs
-the fused WARP/BPR engine (`rankfm_tpu_torch.ops.fused`): its chunk step is
-the CUDA kernel on a GPU and the kernel's plain version on the CPU.
+the engines of the JAX package as its planner resolves them: the fused
+WARP/BPR engine (`rankfm_tpu_torch.ops.fused`, with its chunk-tail or its
+candidate tail) and the XLA window and candidate engines
+(`rankfm_tpu_torch.ops.training`). Their kernels (the fused chunk step and
+the table update) run on a GPU; on the CPU their plain versions run.
 
 Not ported yet (each raises or is absent until its ROADMAP item lands):
-checkpoints (`save`/`load`), the native C++ ingest, the XLA window and
-candidate engines with the mixed schedule, side features in training, and
-mesh placement.
+checkpoints (`save`/`load`), the native C++ ingest, side features on the
+fused engine, and mesh placement.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from rankfm_tpu_torch.models.planner import FitSpec, plan_fit
 from rankfm_tpu_torch.ops import fused as fused_mod
-from rankfm_tpu_torch.ops import scoring, topk
+from rankfm_tpu_torch.ops import scoring, topk, training
 from rankfm_tpu_torch.ops.negatives import build_bitmap_words
 from rankfm_tpu_torch.utils.convert import weights_to_numpy
 from rankfm_tpu_torch.utils.data import (
@@ -59,8 +61,9 @@ def _ll_guard(ll, tensors):
 
 class _FitRun:
     """One ``fit_partial`` execution: epoch scheduling, the per-epoch
-    training log, the lagged divergence check and the fused engine's epochs.
-    Every regime decision arrives pre-resolved in a `FitPlan`."""
+    training log, the lagged divergence check and the fused and XLA
+    engines' epochs. Every regime decision arrives pre-resolved in a
+    `FitPlan`."""
 
     def __init__(self, model, plan, verbose):
         self.m = model
@@ -70,6 +73,8 @@ class _FitRun:
         self.U = len(model.user_idx)
         self.I = len(model.item_idx)
         self.F = model.factors
+        self.x_uf_any = bool(model.x_uf.any())
+        self.x_if_any = bool(model.x_if.any())
         # the epoch stream continues across fit_partial calls (a warm-start
         # loop must not replay the same shuffle/negative stream); the eta
         # schedule restarts per call
@@ -106,7 +111,8 @@ class _FitRun:
         self.epoch_lls.append(ll)
         self.epoch_secs.append(dt)
         if self.verbose:
-            self.pull()
+            if self.pull is not None:
+                self.pull()
             self.m._assert_finite()
             penalty = self.m._reg_penalty()
             print("\ntraining epoch:", epoch)
@@ -132,18 +138,69 @@ class _FitRun:
             })
 
     def run(self):
-        self.run_fused()
+        plan = self.plan
+        if plan.fused:
+            self.run_fused()
+        else:
+            self.run_xla(range(plan.n_main + plan.n_tail))
         self.finish()
+
+    def run_xla(self, epochs, step_kind=None):
+        """Epochs of the XLA window or candidate step (single placement),
+        continuing the global epoch numbering so the eta schedule and the
+        random streams line up with any fused epochs before them."""
+        m, plan = self.m, self.plan
+        self.pull = None  # m._w is updated every epoch here
+        n, num_items = self.n, self.I
+        dev = m.device
+        bs_x = plan.xla_batch
+        if step_kind is None:
+            step_kind = plan.step_kind
+        # the batch count quantized into ~3%-wide buckets, as in the JAX
+        # package (its compiled shapes); pad rows are invalid
+        nb_x = max(1, math.ceil(n / bs_x))
+        qb = 1 << max(0, nb_x.bit_length() - 6)
+        n_pad = -(-nb_x // qb) * qb * bs_x
+        u = torch.zeros(n_pad, dtype=torch.int64)
+        i = torch.zeros(n_pad, dtype=torch.int64)
+        sw = torch.zeros(n_pad, dtype=torch.float32)
+        u[:n] = torch.from_numpy(m.interactions[:, 0].astype(np.int64))
+        i[:n] = torch.from_numpy(m.interactions[:, 1].astype(np.int64))
+        sw[:n] = torch.from_numpy(m.sample_weight)
+        u, i, sw = u.to(dev), i.to(dev), sw.to(dev)
+        mrl = (int(np.diff(m._ui_offsets).max())
+               if len(m._ui_offsets) > 1 else 1)
+        if step_kind == 'candidate':
+            step = training.make_train_step(
+                num_items, plan.max_samples, self.x_uf_any, self.x_if_any,
+                sample_rounds=plan.rounds, sampler=m._sampler,
+                post_reject=plan.post_reject, max_row_len=mrl)
+            hist = {"offsets": m._offsets_dev, "flat": m._flat_items_dev,
+                    "bitmap": m._ensure_bitmap()}
+        else:
+            step = training.make_window_train_step(
+                num_items, plan.max_samples, self.x_uf_any, self.x_if_any)
+            hist = m._ensure_packed_hist()
+        epoch_fn = training.epoch_body(step, bs_x)
+        # the steps update the item and user tables in place: train copies,
+        # so arrays handed out before this fit (`_weights`, `v_i`, ...; on
+        # the CPU these are views) keep their values
+        w = {k: v.clone() for k, v in m._w.items()}
+        for epoch in epochs:
+            t0 = time.time()
+            w, ll = epoch_fn(
+                w, m._x_uf_dev, m._x_if_dev, hist, u, i, sw, n,
+                self.eta(epoch), m.alpha, m.beta, m.seed, self.rng_off + epoch)
+            m._w = w
+            self.log_epoch(epoch, _ll_guard(ll, list(w.values())),
+                           time.time() - t0)
 
     def run_fused(self):
         m, plan = self.m, self.plan
         U, num_items, F = self.U, self.I, self.F
         dev = m.device
         I_pad = fused_mod.item_pad(num_items)
-        if m._packed_hist is None:
-            m._packed_hist = torch.from_numpy(fused_mod.pack_history(
-                m._ui_offsets, m._ui_items, U, num_items)).to(dev)
-        packed = m._packed_hist
+        packed = m._ensure_packed_hist()
 
         def layout_for(chunk, ub):
             rec, group, cids, ublk, iblk = fused_mod.make_records_grouped(
@@ -194,6 +251,11 @@ class _FitRun:
                        plan.tail_chunk, ub_t,
                        layout_for(plan.tail_chunk, ub_t))
         pull_back()
+        if plan.n_tail:
+            # mixed schedule: the closing epochs run the candidate step,
+            # whose negatives are drawn from the whole catalog
+            self.run_xla(range(plan.n_main, plan.n_main + plan.n_tail),
+                         step_kind='candidate')
 
 
 class RankFM:
@@ -301,9 +363,12 @@ class RankFM:
         self.interactions = None
         self.sample_weight = None
 
-        # CSR user -> sorted distinct item history (host numpy)
+        # CSR user -> sorted distinct item history (host numpy), and its
+        # device copies for the binary-search sampler
         self._ui_offsets = None
         self._ui_items = None
+        self._offsets_dev = None
+        self._flat_items_dev = None
 
         self.x_uf = None
         self.x_if = None
@@ -414,6 +479,8 @@ class RankFM:
         else:
             self.sample_weight = np.ones(len(self.interactions), dtype=np.float32)
         self._ui_offsets, self._ui_items = offsets, items
+        self._offsets_dev = torch.from_numpy(offsets).to(self.device)
+        self._flat_items_dev = torch.from_numpy(items).to(self.device)
         self._packed_hist = None  # history changed: rebuild lazily
         self._user_items_view = None
 
@@ -429,12 +496,27 @@ class RankFM:
         self._bitmap_dev = None
 
     def _ensure_bitmap(self):
-        """The packed membership bitmap (int32 words) on first use."""
+        """The packed membership bitmap (int32 words) on first use; a 1x1
+        placeholder when the binary-search sampler is in use."""
         if self._bitmap_dev is None:
-            bm = build_bitmap_words(self._ui_offsets, self._ui_items,
-                                    len(self.user_idx), len(self.item_idx))
-            self._bitmap_dev = torch.from_numpy(bm.view(np.int32)).to(self.device)
+            if self._sampler == 'bitmap':
+                bm = build_bitmap_words(self._ui_offsets, self._ui_items,
+                                        len(self.user_idx), len(self.item_idx))
+                self._bitmap_dev = torch.from_numpy(
+                    bm.view(np.int32)).to(self.device)
+            else:
+                self._bitmap_dev = torch.zeros((1, 1), dtype=torch.int32,
+                                               device=self.device)
         return self._bitmap_dev
+
+    def _ensure_packed_hist(self):
+        """The blocked 16-bit history pack (`fused.pack_history`) that the
+        fused engine and the window step read, on first use."""
+        if self._packed_hist is None:
+            self._packed_hist = torch.from_numpy(fused_mod.pack_history(
+                self._ui_offsets, self._ui_items, len(self.user_idx),
+                len(self.item_idx))).to(self.device)
+        return self._packed_hist
 
     def _init_features(self, user_features=None, item_features=None):
         """store user/item feature matrices row-ordered by index"""

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``rankfm_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` at first use into a shared library
-with a plain C interface, loaded with ``ctypes``. The library goes into
+Each source is compiled with ``nvcc`` at first use into a shared library of
+its own with a plain C interface, loaded with ``ctypes``; the compilers of
+all sources run at the same time. The libraries go into
 ``rankfm_tpu_torch/_build/<hash>/``, keyed by the sources and the flags, so
 an edited source rebuilds and an unchanged one loads at once. A failed
 build raises; nothing falls back.
@@ -18,7 +19,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "fused_chunk.cu",)
+SOURCES = (_PKG / "csrc" / "fused_chunk.cu",
+           _PKG / "csrc" / "table_update.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -26,17 +28,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# library (source stem) -> {function: argtypes}; every function returns int,
+# and every library also exports `rfm_error_string`
 _ARGTYPES = {
-    # tab_u, tab_i, D, F, rec, packed, W, blk, ublk, iblk, acc, ll_rows,
-    # chosen, nT, C, UB, BLK, NW, M, nm1, log_I, mult_bpr, seed, eta, dreg,
-    # stream
-    "rfm_fused_batch": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _F, _F, _F, ctypes.c_uint,
-                        _F, _F, _P],
+    "fused_chunk": {
+        # tab_u, tab_i, D, F, rec, packed, W, blk, ublk, iblk, acc, ll_rows,
+        # chosen, nT, C, UB, BLK, NW, M, nm1, log_I, mult_bpr, seed, eta,
+        # dreg, stream
+        "rfm_fused_batch": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                            _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                            ctypes.c_uint, _F, _F, _P],
+    },
+    "table_update": {
+        # tab, bias, N, F, idx_s, upd_s, B2, eta, c, stream
+        "rfm_table_update_sorted": [_P, _P, _I, _I, _P, _P, _I, _F, _F, _P],
+        # tab, bias, N, F, idx, upd, B2, acc, eta, c, stream
+        "rfm_table_update_dense": [_P, _P, _I, _I, _P, _P, _I, _P, _F, _F,
+                                   _P],
+    },
 }
 
-_lib = None
-build_info = {}   # {"seconds": build time (0 when loaded as built), "log": nvcc output}
+_libs = {}
+# {"seconds": wall time of the parallel build (0 when loaded as built),
+#  "log": nvcc output of every source}
+build_info = {}
 
 
 def nvcc_path():
@@ -65,42 +80,54 @@ def _digest():
 
 
 def build():
-    """Compile the sources unless this content's library exists; returns
-    its path."""
+    """Compile every source whose library is missing for this content, all
+    compilers at once; returns the directory holding ``lib<stem>.so`` for
+    each source."""
     out_dir = BUILD_DIR / _digest()
-    lib_path = out_dir / "libfused_chunk.so"
-    if lib_path.exists():
+    todo = [s for s in SOURCES if not (out_dir / f"lib{s.stem}.so").exists()]
+    if not todo:
         build_info.setdefault("seconds", 0.0)
-        return lib_path
+        return out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libfused_chunk.{os.getpid()}.tmp.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = nvcc_path()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in todo:
+        tmp = out_dir / f"lib{src.stem}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((src, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}")
+        else:
+            os.replace(tmp, out_dir / f"lib{src.stem}.so")
     build_info["seconds"] = time.time() - t0
-    build_info["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{build_info['log']}")
-    os.replace(tmp, lib_path)
-    return lib_path
+    build_info["log"] = "\n".join(logs)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out_dir
 
 
-def load():
-    """The loaded kernel library (built at first use)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _ARGTYPES.items():
-            fn = getattr(lib, name)
+def load(name="fused_chunk"):
+    """The loaded library of ``csrc/<name>.cu`` (every library is built at
+    the first load)."""
+    if name not in _libs:
+        out_dir = build()
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        for fn_name, argtypes in _ARGTYPES[name].items():
+            fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.rfm_error_string.argtypes = [ctypes.c_int]
         lib.rfm_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
-def error_string(err):
-    return load().rfm_error_string(int(err)).decode()
+def error_string(err, name="fused_chunk"):
+    return load(name).rfm_error_string(int(err)).decode()

@@ -16,8 +16,10 @@ same bits, so the plain version and the kernel see the same draws. A draw
 is the first output word's top 24 bits scaled to ``[0, 1)``, exact in f32.
 
 The twin runs in int64 tensor ops on any device. A 32 x 32-bit product can
-reach 2^64 and would overflow int64, so `_mulhilo` splits the multiplier
-into 16-bit halves; every intermediate stays below 2^49.
+reach 2^64: int64 tensor products wrap modulo 2^64 (two's complement) on
+the CPU and on CUDA, so the product's bit pattern is exact and `_mulhilo`
+masks its two 32-bit halves out of it (the known-answer tests with
+all-ones inputs pin this).
 """
 
 from __future__ import annotations
@@ -32,11 +34,8 @@ STREAM_U01, STREAM_R1 = 0, 1
 
 def _mulhilo(a, m):
     """(hi, lo) 32-bit words of ``a * m`` for int64 ``a`` in [0, 2^32)."""
-    p_lo = a * (m & 0xFFFF)                     # < 2^48
-    p_hi = a * (m >> 16)                        # < 2^48
-    hi = (p_hi + (p_lo >> 16)) >> 16
-    lo = (((p_hi & 0xFFFF) << 16) + p_lo) & _MASK
-    return hi, lo
+    p = a * m                                   # wraps modulo 2^64
+    return (p >> 32) & _MASK, p & _MASK
 
 
 def philox4x32(c0, c1, c2, c3, k0, k1=0):

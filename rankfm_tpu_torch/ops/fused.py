@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from rankfm_tpu_torch.ops import _philox
+from rankfm_tpu_torch.ops.scatter import decay_rows
 
 LANES = 128          # TPU lane width: only the eligibility rule reads it
 BITS_PER_LANE = 16
@@ -377,20 +378,6 @@ def select_key(pw, nonmem, u01, r1, M, num_items):
     return key, sampled, mult
 
 
-def _decay(cnt, eta, dreg):
-    """Per-touch geometric decay factors ``(c^k, eta * f(k))`` of k touches
-    in one chunk: ``w <- c^k w + eta (1-c^k)/(k(1-c)) sum(g)``,
-    ``c = max(1 - eta*2*alpha, 1e-8)``."""
-    c = torch.clamp(1.0 - torch.tensor(dreg, dtype=torch.float32,
-                                       device=cnt.device), min=1e-8)
-    ck = torch.exp(cnt * torch.log(c))
-    denom = cnt * (1.0 - c)
-    f = torch.where(denom > 1e-12,
-                    (1.0 - ck) / torch.clamp(denom, min=1e-12),
-                    torch.ones_like(cnt))
-    return ck, eta * f
-
-
 def _chunk_reference(tab_u, tab_i, rec, packed, blks, ubase, ibase, u01, r1,
                      eta, dreg, F, M, BLK, UB, num_items):
     """One chunk, in place on the tables. Returns the per-row ll terms,
@@ -451,22 +438,22 @@ def _chunk_reference(tab_u, tab_i, rec, packed, blks, ubase, ibase, u01, r1,
     acc_w = w_j.T @ (-g_ip)                                  # [W2, D]
     cnt_w = w_j.T @ gate                                     # [W2]
 
-    # decay + update, in the kernel's order: user block, positive block,
-    # then each window block (a block drawn twice is updated twice)
-    ck, gf = _decay(cnt_u, eta, dreg)
+    # decay + update (w <- c^k w + eta (1-c^k)/(k(1-c)) sum(g) for k
+    # touches, c = max(1 - dreg, 1e-8)), in the kernel's order: user block,
+    # positive block, then each window block (a block drawn twice is
+    # updated twice)
+    c = float(np.maximum(np.float32(1.0) - np.float32(dreg), np.float32(1e-8)))
     rows = slice(ubase, ubase + UB)
-    tab_u[rows, :F] = tab_u[rows, :F] * ck[:, None] + gf[:, None] * acc_u[:, :F]
-    ck, gf = _decay(cnt_p, eta, dreg)
+    tab_u[rows, :F] = decay_rows(tab_u[rows, :F], acc_u[:, :F], cnt_u, eta, c)
     rows = slice(ibase, ibase + BLK)
-    tab_i[rows, :F + 1] = (tab_i[rows, :F + 1] * ck[:, None]
-                           + gf[:, None] * acc_p[:, :F + 1])
+    tab_i[rows, :F + 1] = decay_rows(tab_i[rows, :F + 1], acc_p[:, :F + 1],
+                                     cnt_p, eta, c)
     for w in range(NW):
         b = int(blks[w])
         sl = slice(w * BLK, (w + 1) * BLK)
-        ck, gf = _decay(cnt_w[sl], eta, dreg)
         rows = slice(b * BLK, (b + 1) * BLK)
-        tab_i[rows, :F + 1] = (tab_i[rows, :F + 1] * ck[:, None]
-                               + gf[:, None] * acc_w[sl, :F + 1])
+        tab_i[rows, :F + 1] = decay_rows(tab_i[rows, :F + 1],
+                                         acc_w[sl, :F + 1], cnt_w[sl], eta, c)
     return ll, chosen, key
 
 
@@ -598,9 +585,11 @@ def epoch_generator(seed, epoch):
 
 
 def draw_window_blocks(gen, shape, num_items):
-    """int32 window-block ids of ``shape``, catalog-size-weighted."""
-    real_cum = torch.as_tensor(window_block_cdf(num_items), dtype=torch.float32)
-    x = torch.rand(shape, generator=gen) * float(num_items)
+    """int32 window-block ids of ``shape``, catalog-size-weighted, on the
+    generator's device."""
+    real_cum = torch.as_tensor(window_block_cdf(num_items), dtype=torch.float32,
+                               device=gen.device)
+    x = torch.rand(shape, generator=gen, device=gen.device) * float(num_items)
     return torch.searchsorted(real_cum, x, right=True).to(torch.int32)
 
 

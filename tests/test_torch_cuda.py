@@ -1,14 +1,20 @@
-"""The fused chunk kernel on the card, and the build and dispatch rules
-around it.
+"""The kernels on the card (the fused chunk step, the sorted and dense
+table updates), and the build and dispatch rules around them.
 
 Tests marked ``cuda`` need an NVIDIA GPU with nvcc and skip without one;
 run them there with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 This file imports no JAX, so it runs where only the port is installed.
 
-Kernel vs plain version on the same inputs and the same Philox draws: f32
-atomics sum in a run-dependent order, so the tables agree to ~1e-5
-absolute (checked at 1e-4), the log-likelihood to 1e-4 relative, and at
-least 99.9% of the rows choose the same negative.
+Fused kernel vs plain version on the same inputs and the same Philox
+draws: f32 atomics sum in a run-dependent order, so the tables agree to
+~1e-5 absolute (checked at 1e-4), the log-likelihood to 1e-4 relative, and
+at least 99.9% of the rows choose the same negative.
+
+Table-update kernels vs `table_update_reference` on the same inputs: each
+sums a row's updates in another order than ``index_add_`` (the dense
+kernel with atomics, in a run-dependent order), so the tables agree to
+~1e-7 absolute even for a row that takes all 16,384 updates; checked at
+1e-5.
 """
 
 import numpy as np
@@ -17,6 +23,7 @@ import torch
 
 from rankfm_tpu_torch.ops import _build
 from rankfm_tpu_torch.ops import fused
+from rankfm_tpu_torch.ops import scatter
 
 
 @pytest.fixture
@@ -121,6 +128,142 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
                           max_samples=5, **kw)
 
 
+def _table_case(dev, N, B2, F, concentrated, with_bias, seed=0):
+    rng = np.random.default_rng(seed)
+    tab = torch.from_numpy(rng.normal(0, 0.1, (N, F)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.1, N).astype(np.float32))
+    idx = (np.full(B2, 7, np.int32) if concentrated
+           else rng.integers(0, N, B2).astype(np.int32))
+    idx[rng.random(B2) < 0.1] = -1                    # skipped rows
+    upd = rng.normal(0, 0.1, (B2, F + 2)).astype(np.float32)
+    upd[:, F + 1] = (idx >= 0).astype(np.float32)
+    return (tab.to(dev), bias.to(dev) if with_bias else None,
+            torch.from_numpy(idx).to(dev), torch.from_numpy(upd).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,B2,kernel,concentrated,with_bias", [
+    (33_362, 16_384, "sorted", False, True),   # Instacart item table
+    (10_000, 8_192, "dense", False, False),    # Instacart user table
+    (33_362, 16_384, "sorted", True, True),    # every update on one row
+    (33_362, 16_384, "dense", True, True),
+], ids=["items-sorted", "users-dense", "concentrated-sorted",
+        "concentrated-dense"])
+def test_table_update_kernels_match_plain_version(cuda, N, B2, kernel,
+                                                  concentrated, with_bias):
+    tab, bias, idx, upd = _table_case(cuda, N, B2, 50, concentrated,
+                                      with_bias)
+    eta, c = 0.1, scatter.decay_c(0.1, 0.01)
+    if not concentrated:
+        assert scatter._regime(N, B2) == kernel
+    tk = tab.clone()
+    bk = None if bias is None else bias.clone()
+    before = scatter.LAUNCHES[kernel]
+    launch = getattr(scatter, f"table_update_{kernel}")
+    out = launch(tk, bk, idx, upd, eta, c)
+    torch.cuda.synchronize()
+    assert out[0] is tk and scatter.LAUNCHES[kernel] == before + 1
+    tr, br = scatter.table_update_reference(
+        tab.clone(), None if bias is None else bias.clone(), idx, upd, eta, c)
+    assert float((tk - tr).abs().max()) <= 1e-5
+    touched = torch.zeros(N, dtype=torch.bool, device=cuda)
+    touched[idx[idx >= 0].long()] = True
+    assert torch.equal(tk[~touched], tab[~touched])       # only touched rows
+    assert float((tk[touched] - tab[touched]).abs().min()) > 0
+    if bias is not None:
+        assert float((bk - br).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_table_update_wrappers_reject_bad_inputs(cuda):
+    tab, bias, idx, upd = _table_case(cuda, 3000, 1024, 8, False, True)
+    for launch in (scatter.table_update_sorted, scatter.table_update_dense):
+        with pytest.raises(ValueError, match="idx"):
+            launch(tab, bias, idx.long(), upd, 0.1, 0.998)
+        with pytest.raises(ValueError, match="inconsistent shapes"):
+            launch(tab, bias, idx, upd[:, :9].contiguous(), 0.1, 0.998)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch(tab.cpu(), bias.cpu(), idx.cpu(), upd.cpu(), 0.1, 0.998)
+
+
+def _latent_log(rng, n_users=600, n_items=2500, per_user=50, sharp=2.0):
+    """A learnable implicit log: Gumbel-top-k samples of a rank-6 latent
+    score row plus a lognormal popularity skew (the generator of
+    `tests/parity_common.make_latent_dataset`, which imports JAX)."""
+    zu = rng.normal(size=(n_users, 6))
+    zi = rng.normal(size=(n_items, 6))
+    logits = (sharp * (zu @ zi.T) / np.sqrt(6)
+              + np.log(rng.lognormal(0.0, 1.0, n_items))[None, :])
+    gumbel = -np.log(-np.log(rng.random((n_users, n_items))))
+    picks = np.argsort(-(logits + gumbel), axis=1)[:, :per_user]
+    arr = np.stack([np.repeat(np.arange(n_users), per_user),
+                    picks.reshape(-1)], 1).astype(np.int64)
+    mask = rng.random(len(arr)) < 0.75
+    return arr[mask], arr[~mask]
+
+
+@pytest.mark.cuda
+def test_gpu_mixed_fit_matches_cpu_mixed_fit(cuda):
+    """The mixed schedule (9 fused epochs, then 1 candidate epoch through
+    both table-update kernels) on the card and on the CPU: the candidate
+    epoch draws from the device's generator, so the two fits are held to
+    each other within the oracle band (+-0.05 hit rate and DCG, +-0.03
+    precision and recall)."""
+    from rankfm_tpu_torch import RankFM, evaluation
+
+    train, test = _latent_log(np.random.default_rng(1492))
+    cfg = dict(factors=16, loss="warp", max_samples=10,
+               learning_schedule="invscaling", train_step="mixed")
+    before = dict(scatter.LAUNCHES)
+    mg = RankFM(**cfg, device="cuda").fit(train, epochs=10)
+    assert mg.last_fit_plan_.fused and mg.last_fit_plan_.n_tail == 1
+    assert scatter.LAUNCHES["dense"] > before.get("dense", 0)
+    mc = RankFM(**cfg, device="cpu").fit(train, epochs=10)
+    assert mg.last_fit_plan_ == mc.last_fit_plan_
+    metrics = ("hit_rate", "discounted_cumulative_gain", "precision",
+               "recall")
+    got = evaluation.compute(mg, test, metrics=metrics, k=10)
+    want = evaluation.compute(mc, test, metrics=metrics, k=10)
+    gate = {"hit_rate": 0.05, "discounted_cumulative_gain": 0.05,
+            "precision": 0.03, "recall": 0.03}
+    for m, tol in gate.items():
+        assert abs(got[m] - want[m]) <= tol, (m, got, want)
+
+
+@pytest.mark.cuda
+def test_gpu_window_fit_matches_cpu_window_fit(cuda):
+    """``use_fused=False`` at 3 window blocks: the window step, both tables
+    through the dense kernel on the card; held to the CPU fit within the
+    oracle band, as the mixed fit above."""
+    from rankfm_tpu_torch import RankFM, evaluation
+
+    train, test = _latent_log(np.random.default_rng(7))
+    cfg = dict(factors=16, loss="warp", max_samples=10,
+               learning_schedule="invscaling", use_fused=False)
+    scatter.LAUNCHES.clear()
+    mg = RankFM(**cfg, device="cuda").fit(train, epochs=10)
+    assert mg.last_fit_plan_.step_kind == "window"
+    assert scatter.LAUNCHES["dense"] > 0 and scatter.LAUNCHES["sorted"] == 0
+    mc = RankFM(**cfg, device="cpu").fit(train, epochs=10)
+    metrics = ("hit_rate", "discounted_cumulative_gain", "precision",
+               "recall")
+    got = evaluation.compute(mg, test, metrics=metrics, k=10)
+    want = evaluation.compute(mc, test, metrics=metrics, k=10)
+    gate = {"hit_rate": 0.05, "discounted_cumulative_gain": 0.05,
+            "precision": 0.03, "recall": 0.03}
+    for m, tol in gate.items():
+        assert abs(got[m] - want[m]) <= tol, (m, got, want)
+
+
+def test_table_update_refuses_other_devices():
+    t = torch.zeros((8, 4), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        scatter.apply_table_update(t, None, torch.zeros(2, dtype=torch.int32,
+                                                        device="meta"),
+                                   torch.zeros((2, 6), device="meta"), 0.1,
+                                   0.998)
+
+
 def test_fused_batch_refuses_other_devices():
     t = torch.zeros((8, 4), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -147,9 +290,11 @@ def test_build_is_keyed_by_content(tmp_path, monkeypatch):
     nvcc.chmod(0o755)
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    n_src = len(_build.SOURCES)
     first = _build.build()
     assert _build.build() == first and first.exists()
-    assert calls.read_text().count("x") == 1
+    assert all((first / f"lib{s.stem}.so").exists() for s in _build.SOURCES)
+    assert calls.read_text().count("x") == n_src      # one nvcc per source
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.build() != first
-    assert calls.read_text().count("x") == 2
+    assert calls.read_text().count("x") == 2 * n_src

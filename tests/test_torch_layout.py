@@ -164,6 +164,11 @@ def test_tables_convert_both_ways():
 
 ML1M = dict(n=749_724, num_users=6040, num_items=3706, factors=20,
             loss="warp", max_samples=20, epochs=20, nnz_hist=700_000)
+# the Instacart headline (examples/instacart_style.py): 68% of a ~500k-row
+# reorder log, log2(orders + 1) sample weights
+INSTACART = dict(n=340_000, num_users=10_000, num_items=33_362, factors=50,
+                 loss="warp", max_samples=50, epochs=30, nnz_hist=340_000,
+                 mean_sample_weight=1.8)
 
 
 @pytest.mark.parametrize("spec", [
@@ -171,24 +176,47 @@ ML1M = dict(n=749_724, num_users=6040, num_items=3706, factors=20,
     dict(n=30_000, num_users=700, num_items=2500, factors=16, loss="warp",
          max_samples=10, epochs=10, nnz_hist=25_000, train_step="window"),
     dict(ML1M, loss="bpr", epochs=12),
-], ids=["ml1m-headline", "3-block-window", "bpr"])
+    INSTACART,
+    dict(INSTACART, epochs=6),
+    dict(ML1M, use_fused=False),
+    dict(ML1M, on_gpu=False),
+    dict(ML1M, num_items=100),                       # 1 block: candidate tail
+    dict(ML1M, use_fused=False, x_if_any=True, num_if=4),
+    dict(ML1M, train_step="mixed"),
+], ids=["ml1m-headline", "3-block-window", "bpr", "instacart",
+        "instacart-6-epochs", "not-fused", "no-backend", "candidate-tail",
+        "features-not-fused", "ml1m-mixed"])
 def test_plan_equals_jax_plan(spec):
-    got = tplanner.plan_fit(tplanner.FitSpec(on_gpu=True, **spec))
-    want = jplanner.plan_fit(jplanner.FitSpec(on_tpu=True, **spec))
+    on_gpu = spec.get("on_gpu", True)
+    spec = {k: v for k, v in spec.items() if k != "on_gpu"}
+    got = tplanner.plan_fit(tplanner.FitSpec(on_gpu=on_gpu, **spec))
+    want = jplanner.plan_fit(jplanner.FitSpec(on_tpu=on_gpu, **spec))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert got.fused
+
+
+def test_instacart_plan_is_the_mixed_schedule():
+    """The Instacart headline: 33 window blocks, fused main epochs (chunk
+    128 @ user block 1,024, 4 windows per chunk), then a candidate tail at
+    batch 8,192 with post-hoc rejection."""
+    plan = tplanner.plan_fit(tplanner.FitSpec(on_gpu=True, **INSTACART))
+    assert plan.fused and plan.nblk == 33 and plan.table_mode == "bf16"
+    assert (plan.batch_size, plan.chunk, plan.user_block) == (32768, 128, 1024)
+    assert tfused.default_n_windows(plan.nblk) == 4 and plan.n_windows is None
+    assert (plan.n_main, plan.n_tail, plan.chunk_tail) == (27, 3, 0)
+    assert (plan.xla_batch, plan.post_reject, plan.rounds) == (8192, True, 3)
+    short = tplanner.plan_fit(tplanner.FitSpec(
+        on_gpu=True, **dict(INSTACART, epochs=6)))
+    assert (short.n_main, short.n_tail) == (5, 1)
+    assert tplanner.plan_fit(tplanner.FitSpec(
+        on_gpu=True, **dict(ML1M, use_fused=False))).step_kind == "window"
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(use_fused=False), "item 6"),
-    (dict(on_gpu=False), "item 6"),
-    (dict(num_items=100), "item 6"),                 # 1 block: candidate tail
-    (dict(mesh=object()), "item 9"),
+    (dict(mesh=object()), "item 4: Parallel"),
     (dict(x_if_any=True, num_if=4), "B1 features"),
     (dict(num_items=9500, train_step="mixed", tail_windows=8), "tail_windows"),
     (dict(shuffle_layouts=4), "shuffle_layouts"),
-], ids=["not-fused", "no-backend", "candidate-tail", "mesh", "features",
-        "wide-tail", "shuffle-layouts"])
+], ids=["mesh", "features", "wide-tail", "shuffle-layouts"])
 def test_plans_outside_the_slice_raise(kw, item):
     spec = dict(ML1M, on_gpu=True)
     spec.update(kw)

@@ -25,6 +25,7 @@ from rankfm_tpu_torch import evaluation as teval
 from rankfm_tpu_torch.utils.convert import weights_from_numpy
 
 from parity_common import make_latent_dataset, oracle_metrics
+from torch_common import one_torch_thread  # noqa: F401
 
 METRICS = ("hit_rate", "reciprocal_rank", "discounted_cumulative_gain",
            "precision", "recall")
@@ -208,7 +209,9 @@ def test_fit_quality_matches_sequential_oracle():
 def test_port_imports_no_jax():
     code = ("import sys; before = set(sys.modules); "
             "import rankfm_tpu_torch, rankfm_tpu_torch.ops.fused, "
-            "rankfm_tpu_torch.ops._build, rankfm_tpu_torch.utils.convert; "
+            "rankfm_tpu_torch.ops._build, rankfm_tpu_torch.utils.convert, "
+            "rankfm_tpu_torch.ops.training, rankfm_tpu_torch.ops.scatter, "
+            "rankfm_tpu_torch.ops.negatives; "
             "bad = [m for m in set(sys.modules) - before if m == 'jax' or "
             "m.startswith(('jax.', 'rankfm_tpu.')) or m == 'rankfm_tpu']; "
             "print(bad, 'jax' in sys.modules); sys.exit(1 if bad else 0)")
