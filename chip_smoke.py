@@ -13,7 +13,13 @@ result line):
    card, on the same inputs and the same Philox draws: at the ML-1M shapes
    of both fit layouts (chunk 256 @ user block 1024, chunk 128 @ user
    block 256; F 20, M 20, 1 window) and at the Instacart shape (chunk 128
-   @ user block 1024; F 50, M 50, 4 windows);
+   @ user block 1024; F 50, M 50, 4 windows); then its side-feature
+   variant at the Instacart shape (21 department one-hots on items, a
+   21-column one-hot of each user's dominant taste department on users)
+   and at the ML-1M shapes with the public ML-1M feature schemas (users:
+   gender 2 + age bucket 7 + occupation 21 one-hots; movies: an 18-genre
+   multi-hot; values drawn from the seed): both feature sets at both fit
+   layouts, user-only and item-only features at the main layout;
 4. the table-update kernels (B3 sorted, B2 dense) against
    ``table_update_reference`` at the Instacart candidate tail's shapes
    (items: 33,362 rows, 16,384 updates; users: 10,000 rows, 8,192
@@ -33,7 +39,16 @@ result line):
    epochs of both engines timed again with the device synced; then
    ``recommend`` for 1,000 users and ``hit_rate@10`` on the held-out 32%
    against the untrained model's;
-7. the window step: the ML-1M log with ``use_fused=False`` for 2 epochs,
+7. the featured Instacart path: the same fit with ``beta=0.1`` and the
+   user and item features of phase 3: 5 fused epochs through featured B1,
+   then one featured candidate epoch through B3 and B2; every table
+   finite, the feature tables moved; the featured epochs timed with the
+   device synced beside the featureless ones; ``recommend`` for 1,000
+   users and ``hit_rate@10`` against the untrained featured model's;
+8. the featured ML-1M path: 3 epochs with the ML-1M-schema features, 2 at
+   the main layout and 1 at the chunk-tail layout (the user features
+   re-padded), all through featured B1;
+9. the window step: the ML-1M log with ``use_fused=False`` for 2 epochs,
    both tables through B2.
 
 Each path runs with the launch counts set to 0 just before it and reads
@@ -49,10 +64,14 @@ import time
 from pathlib import Path
 
 import numpy as np
+import pandas as pd
 
 ROOT = Path(__file__).resolve().parent
 N_USERS, N_ITEMS, N_INTER = 6040, 3706, 749_724
 IC_USERS, IC_ITEMS, IC_DEPTS = 10_000, 33_362, 21
+# ML-1M side-feature schemas: users.dat gender, age bucket, occupation;
+# movies.dat genres
+ML_USER_COLS, ML_GENRES = (2, 7, 21), 18
 SEED = 1492
 # fused kernel vs plain version on the same inputs: f32 atomics sum in a
 # run-dependent order, so the tables agree to ~1e-5 absolute
@@ -65,6 +84,7 @@ TIE_RTOL = 1e-5            # a mismatch must be a near-tie of keys
 # concentrated row (all 16,384 updates) stays ~1e-7 off after the eta*f
 # scaling
 UPDATE_ATOL = 1e-5
+CARD = "?"   # nvidia-smi's name and power limit, printed beside each time
 
 
 class SmokeFailure(Exception):
@@ -98,7 +118,10 @@ def make_instacart(rng):
     and geometric(0.35) order counts. A user's products are drawn with
     replacement from p ~ popularity * taste[department] (twice the basket
     size) and deduplicated in draw order, so a few users hold fewer than
-    their basket size. Returns ``(pairs [n, 2] int64, n_orders [n])``."""
+    their basket size. Returns ``(pairs [n, 2] int64, n_orders [n],
+    depts)``: ``depts`` holds each product's department and each user's
+    dominant taste department (the argmax of the Dirichlet draw; a
+    synthetic user feature, the example has none)."""
     dept_of_item = rng.integers(0, IC_DEPTS, IC_ITEMS)
     pop = 1.0 / np.arange(1, IC_ITEMS + 1) ** 0.8
     taste = rng.dirichlet(np.ones(IC_DEPTS) * 0.2, size=IC_USERS)
@@ -126,7 +149,37 @@ def make_instacart(rng):
     rank = np.arange(len(u)) - np.searchsorted(u, u)
     keep = rank < basket[u]
     pairs = np.stack([u[keep], i[keep]], 1).astype(np.int64)
-    return pairs, rng.geometric(0.35, size=len(pairs))
+    depts = {"item": dept_of_item, "user": taste.argmax(1)}
+    return pairs, rng.geometric(0.35, size=len(pairs)), depts
+
+
+def one_hot(codes, n):
+    x = np.zeros((len(codes), n), np.float32)
+    x[np.arange(len(codes)), codes] = 1.0
+    return x
+
+
+def ml1m_features(rng):
+    """Side features in the public ML-1M schema, drawn from the seed:
+    ``x_uf [6040, 30]``, one-hots of gender, age bucket and occupation
+    (``users.dat``), and ``x_if [3706, 18]``, a multi-hot of 1-3 genres
+    (``movies.dat``)."""
+    x_uf = np.concatenate([one_hot(rng.integers(0, n, N_USERS), n)
+                           for n in ML_USER_COLS], 1)
+    x_if = np.zeros((N_ITEMS, ML_GENRES), np.float32)
+    n_genres = rng.integers(1, 4, N_ITEMS)
+    for k in range(3):
+        rows = np.flatnonzero(n_genres > k)
+        x_if[rows, rng.integers(0, ML_GENRES, len(rows))] = 1.0
+    return x_uf, x_if
+
+
+def feature_frame(x, ids, name):
+    """Rows ``ids`` of ``x`` as a feature frame ``[<name>_id, f0, ...]``
+    (a fit takes features for exactly its interactions' ids)."""
+    df = pd.DataFrame(x[ids], columns=[f"{name}{k}" for k in range(x.shape[1])])
+    df.insert(0, f"{name}_id", ids)
+    return df
 
 
 def cuda_ms(torch, fn, reps):
@@ -141,9 +194,11 @@ def cuda_ms(torch, fn, reps):
 
 
 def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
-                 sw=None, tag="ML-1M"):
+                 sw=None, tag="ML-1M", x_uf=None, x_if=None):
     """B1 against its plain version on ``train``'s records at each
-    ``(chunk, user block)`` layout, ``nw`` windows per chunk."""
+    ``(chunk, user block)`` layout, ``nw`` windows per chunk; with side
+    features when ``x_uf [U, P]`` and/or ``x_if [I, Q]`` are given (the
+    four tables are compared)."""
     rng = np.random.default_rng(SEED)
     pairs = np.unique(train, axis=0)
     offsets = np.zeros(U + 1, np.int32)
@@ -155,9 +210,29 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
     w_i = torch.from_numpy(rng.normal(0, 0.05, I).astype(np.float32))
     if sw is None:
         sw = np.ones(len(train), np.float32)
-    eta, dreg = 0.1, float(np.float32(0.1) * np.float32(2 * np.float32(0.01)))
+    # dreg = (eta*2*alpha, eta*2*beta) at alpha 0.01, beta 0.1
+    eta = 0.1
+    dreg = tuple(float(np.float32(eta) * np.float32(2 * np.float32(r)))
+                 for r in (0.01, 0.1))
+    feats = {}
+    if x_uf is not None or x_if is not None:
+        P = 1 if x_uf is None else x_uf.shape[1]
+        Q = 1 if x_if is None else x_if.shape[1]
+        tuf, tif = fused.extend_feature_tables(*(
+            torch.from_numpy(rng.normal(0, 0.05, shape).astype(
+                np.float32)).to(dev) for shape in ((P, F), Q, (Q, F))))
+        if x_if is not None:
+            feats.update(x_if=fused.pad_feature_cols(
+                torch.from_numpy(x_if).to(dev), fused.item_pad(I)), tab_if=tif)
+        if x_uf is not None:
+            feats["tab_uf"] = tuf
+        tag += (f" + features (user {0 if x_uf is None else P}, item "
+                f"{0 if x_if is None else Q})")
     out = {"max_abs_err": 0.0}
     for chunk, ub in layouts:
+        if x_uf is not None:
+            feats["x_uf"] = fused.pad_feature_cols(
+                torch.from_numpy(x_uf).to(dev), fused.user_pad(U, ub))
         rec, _, cids, ublk, iblk = fused.make_records_grouped(
             train[:, 0], train[:, 1], sw, U, I, 32768, chunk, ub=ub)
         UB = fused.user_block(U, ub)
@@ -176,6 +251,8 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
         kw = dict(factors=F, max_samples=M, ub_rows=UB, num_items=I)
         tk = [t.clone() for t in tabs]
         tr = [t.clone() for t in tabs]
+        fk = {k: v.clone() for k, v in feats.items()}
+        fr = {k: v.clone() for k, v in feats.items()}
         n_rows = n_match = 0
         for rec_b, blk_b, ub_b, ib_b, seed in batches:
             ch_k = torch.empty(nT * chunk, dtype=torch.int32, device=dev)
@@ -183,10 +260,10 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
             keys = []
             ll_k = float(fused.fused_batch(*tk, rec_b, packed, blk_b, ub_b,
                                            ib_b, seed, eta, dreg, chosen=ch_k,
-                                           **kw))
+                                           **kw, **fk))
             ll_r = float(fused.fused_batch_reference(
                 *tr, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg,
-                chosen=ch_r, keys=keys, **kw))
+                chosen=ch_r, keys=keys, **kw, **fr))
             check(np.isfinite(ll_k) and abs(ll_k - ll_r) <= LL_RTOL * abs(ll_r),
                   f"ll kernel {ll_k} vs plain {ll_r} ({tag} chunk {chunk})")
             ck, cr = ch_k.cpu().numpy(), ch_r.cpu().numpy()
@@ -200,23 +277,27 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
                 check(abs(kk - kr) <= TIE_RTOL * max(1.0, abs(kr)),
                       f"row {r}: kernel chose slot {ck[r]} (key {kk}), plain "
                       f"chose {cr[r]} (key {kr}) ({tag} chunk {chunk})")
-        err = max(float((a - b).abs().max()) for a, b in zip(tk, tr))
+        pairs_kr = list(zip(tk, tr)) + [(fk[k], fr[k]) for k in
+                                        ("tab_uf", "tab_if") if k in feats]
+        err = max(float((a - b).abs().max()) for a, b in pairs_kr)
         out["max_abs_err"] = max(out["max_abs_err"], err)
         check(err <= TABLE_ATOL, f"tables differ by {err} ({tag} chunk {chunk})")
         check(n_match >= MATCH_MIN * n_rows,
               f"negatives match on {n_match}/{n_rows} rows ({tag} chunk {chunk})")
         rec_b, blk_b, ub_b, ib_b, seed = batches[0]
         ms = cuda_ms(torch, lambda: fused.fused_batch(
-            *tk, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg, **kw), 5)
+            *tk, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg, **kw,
+            **fk), 5)
         plain_ms = cuda_ms(torch, lambda: fused.fused_batch_reference(
-            *tr, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg, **kw), 1)
+            *tr, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg, **kw,
+            **fr), 1)
         out[f"c{chunk}"] = {"ms": ms, "plain_ms": plain_ms,
                             "match": n_match / n_rows, "max_abs_err": err}
         print(f"B1 vs plain, {tag} (F {F}, M {M}, {nw} window(s)), "
               f"chunk {chunk} @ user block {UB}: "
               f"{nT} chunks/batch, negatives match {n_match}/{n_rows}, "
               f"max |table diff| {err:.3g}, batch {ms:.3f} ms vs plain "
-              f"{plain_ms:.3f} ms", flush=True)
+              f"{plain_ms:.3f} ms ({CARD})", flush=True)
     return out
 
 
@@ -273,7 +354,11 @@ def update_phase(torch, scatter, dev):
 
 
 def launches_of(fused, scatter):
-    return {"fused_chunk": sum(fused.LAUNCHES.values()),
+    """Launch counts by kernel; B1's keys end in its two feature flags."""
+    return {"fused_chunk": sum(n for k, n in fused.LAUNCHES.items()
+                               if not (k[2] or k[3])),
+            "fused_chunk_features": sum(n for k, n in fused.LAUNCHES.items()
+                                        if k[2] or k[3]),
             "table_update_sorted": scatter.LAUNCHES["sorted"],
             "table_update_dense": scatter.LAUNCHES["dense"]}
 
@@ -304,9 +389,10 @@ def ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test):
     counts = launches_of(fused, scatter)
     plan = model.last_fit_plan_
     check(plan.fused and plan.chunk_tail == 1, f"plan {plan}")
-    main_key = (plan.chunk, fused.user_block(N_USERS, plan.user_block))
+    main_key = (plan.chunk, fused.user_block(N_USERS, plan.user_block),
+                False, False)
     tail_key = (plan.tail_chunk,
-                fused.user_block(N_USERS, plan.tail_user_block))
+                fused.user_block(N_USERS, plan.tail_user_block), False, False)
     check(launches.get(main_key, 0) > 0 and launches.get(tail_key, 0) > 0,
           f"kernel launches by layout {launches}")
     lls = check_lls(model, 6, "ML-1M")
@@ -356,7 +442,8 @@ def ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test):
 
 def time_engine_epochs(torch, model, fused, training):
     """CUDA-synced wall time of one more fused epoch and one more candidate
-    epoch on the fitted model's tables, at the fit's plan."""
+    epoch on the fitted model's tables, at the fit's plan (with the
+    model's side features, if it has any)."""
     plan = model.last_fit_plan_
     U, I, F = len(model.user_idx), len(model.item_idx), model.factors
     dev = model.device
@@ -368,9 +455,21 @@ def time_engine_epochs(torch, model, fused, training):
               torch.from_numpy(cids), torch.from_numpy(ublk),
               torch.from_numpy(iblk))
     w = model._w
+    U_pad = fused.user_pad(U, plan.user_block)
     tab_u, tab_i = fused.extend_tables(
-        w["w_i"], w["v_u"], w["v_i"], fused.user_pad(U, plan.user_block),
-        fused.item_pad(I))
+        w["w_i"], w["v_u"], w["v_i"], U_pad, fused.item_pad(I))
+    has_uf, has_if = bool(model.x_uf.any()), bool(model.x_if.any())
+    feats = {}
+    if has_uf or has_if:
+        tuf, tif = fused.extend_feature_tables(w["v_uf"], w["w_if"],
+                                               w["v_if"])
+        if has_uf:
+            feats.update(x_uf=fused.pad_feature_cols(model._x_uf_dev, U_pad),
+                         tab_uf=tuf)
+        if has_if:
+            feats.update(x_if=fused.pad_feature_cols(model._x_if_dev,
+                                                     fused.item_pad(I)),
+                         tab_if=tif)
     packed = model._ensure_packed_hist()
     out = {}
     for rep in range(2):
@@ -380,7 +479,8 @@ def time_engine_epochs(torch, model, fused, training):
                           model.seed, 100 + rep, num_users=U, num_items=I,
                           factors=F, max_samples=plan.max_samples,
                           batch_size=plan.batch_size, chunk=plan.chunk,
-                          ub=plan.user_block, n_windows=plan.n_windows)
+                          ub=plan.user_block, n_windows=plan.n_windows,
+                          beta=model.beta, **feats)
         torch.cuda.synchronize()
         out.setdefault("fused", []).append(time.time() - t0)
     n = len(model.interactions)
@@ -392,7 +492,7 @@ def time_engine_epochs(torch, model, fused, training):
     cols[1][:n] = torch.from_numpy(model.interactions[:, 1].astype(np.int64))
     cols[2][:n] = torch.from_numpy(model.sample_weight)
     step = training.make_train_step(
-        I, plan.max_samples, False, False, sample_rounds=plan.rounds,
+        I, plan.max_samples, has_uf, has_if, sample_rounds=plan.rounds,
         sampler=model._sampler, post_reject=plan.post_reject,
         max_row_len=int(np.diff(model._ui_offsets).max()))
     hist = {"offsets": model._offsets_dev, "flat": model._flat_items_dev,
@@ -411,34 +511,65 @@ def time_engine_epochs(torch, model, fused, training):
     return out
 
 
-def instacart_path(torch, RankFM, evaluation, fused, scatter, training):
-    """The mixed schedule at the Instacart shape, then serving."""
+def instacart_data():
+    """``(train, test, sw, x_uf, x_if)``: 68% of the Instacart-shaped log
+    with log2(orders + 1) weights, and the users' / products' one-hot
+    department features (all 10,000 users, all 33,362 products)."""
     rng = np.random.default_rng(SEED)
     t0 = time.time()
-    pairs, n_orders = make_instacart(rng)
+    pairs, n_orders, depts = make_instacart(rng)
     mask = rng.random(len(pairs)) < 0.68
     train, test = pairs[mask], pairs[~mask]
     sw = np.log2(n_orders[mask] + 1).astype(np.float32)
     print(f"Instacart data: {len(pairs)} rows ({len(train)} train), "
           f"{len(np.unique(pairs[:, 1]))} products, {time.time() - t0:.2f} s",
           flush=True)
+    return (train, test, sw, one_hot(depts["user"], IC_DEPTS),
+            one_hot(depts["item"], IC_DEPTS))
+
+
+def instacart_path(torch, RankFM, evaluation, fused, scatter, training, data,
+                   features=False):
+    """The mixed schedule at the Instacart shape, then serving; with
+    ``features``, the same fit with the user and item department features
+    through featured B1 and the featured candidate epoch."""
+    train, test, sw, x_uf, x_if = data
+    tag = "featured Instacart" if features else "Instacart"
+    fkw = {}
+    if features:
+        fkw = dict(user_features=feature_frame(x_uf, np.unique(train[:, 0]),
+                                               "user"),
+                   item_features=feature_frame(x_if, np.unique(train[:, 1]),
+                                               "item"))
     cfg = dict(factors=50, loss="warp", max_samples=50, alpha=0.01,
-               learning_rate=0.1, learning_schedule="invscaling",
+               beta=0.1, learning_rate=0.1, learning_schedule="invscaling",
                device="cuda")
     reset_launches(torch, fused, scatter)
     t0 = time.time()
-    model = RankFM(**cfg).fit(train, sample_weight=sw, epochs=6)
+    model = RankFM(**cfg).fit(train, sample_weight=sw, epochs=6, **fkw)
     torch.cuda.synchronize()
     fit_s = time.time() - t0
     counts = launches_of(fused, scatter)
     plan = model.last_fit_plan_
     check(plan.fused and plan.n_main == 5 and plan.n_tail == 1
-          and plan.step_kind == "candidate", f"Instacart plan {plan}")
-    check(counts["fused_chunk"] > 0, f"B1 did not launch: {counts}")
+          and plan.step_kind == "candidate", f"{tag} plan {plan}")
+    b1, other = (("fused_chunk_features", "fused_chunk") if features
+                 else ("fused_chunk", "fused_chunk_features"))
+    check(counts[b1] > 0 and counts[other] == 0,
+          f"{tag}: {b1} did not launch alone: {counts}")
     check(counts["table_update_sorted"] > 0 and counts["table_update_dense"] > 0,
           f"the candidate epoch did not launch both table updates: {counts}")
-    lls = check_lls(model, 6, "Instacart")
-    print(f"Instacart fit: {fit_s:.2f} s for 6 epochs of "
+    lls = check_lls(model, 6, tag)
+    base = RankFM(**cfg)
+    base._init_all(train, sample_weight=sw, **fkw)
+    base.is_fit = True
+    for k, v in model._weights.items():
+        check(np.isfinite(v).all(), f"{tag}: {k} is not finite")
+    if features:
+        for k in ("v_uf", "w_if", "v_if"):
+            moved = float(np.abs(model._weights[k] - base._weights[k]).max())
+            check(moved > 0, f"{tag}: {k} did not move")
+    print(f"{tag} fit: {fit_s:.2f} s for 6 epochs of "
           f"{len(model.interactions)} rows ({len(model.user_idx)} users x "
           f"{len(model.item_idx)} items); plan {plan.nblk} blocks, batch "
           f"{plan.batch_size}, chunk {plan.chunk} @ ub {plan.user_block}, "
@@ -452,25 +583,58 @@ def instacart_path(torch, RankFM, evaluation, fused, scatter, training):
     recs = model.recommend(users, n_items=10, filter_previous=True)
     rec_s = time.time() - t0
     check(recs.shape == (len(users), 10) and not recs.isna().any().any(),
-          f"Instacart recommend {recs.shape}")
+          f"{tag} recommend {recs.shape}")
     t0 = time.time()
     hr = evaluation.hit_rate(model, test, k=10)
     hr_s = time.time() - t0
-    base = RankFM(**cfg)
-    base._init_all(train, sample_weight=sw)
-    base.is_fit = True
     hr0 = evaluation.hit_rate(base, test, k=10)
-    check(hr > hr0, f"Instacart hit rate {hr} does not beat the untrained "
+    check(hr > hr0, f"{tag} hit rate {hr} does not beat the untrained "
                     f"model's {hr0}")
-    print(f"Instacart serving: recommend 1000 users {rec_s:.3f} s, "
+    print(f"{tag} serving: recommend 1000 users {rec_s:.3f} s, "
           f"hit_rate@10 {hr:.4f} (untrained {hr0:.4f}) in {hr_s:.3f} s",
           flush=True)
 
     tm = time_engine_epochs(torch, model, fused, training)
-    print(f"Instacart epochs, device synced: fused "
+    print(f"{tag} epochs, device synced: fused "
           f"{', '.join(f'{x:.3f}' for x in tm['fused'])} s; candidate "
           f"{', '.join(f'{x:.3f}' for x in tm['candidate'])} s "
-          f"({tm['candidate_batches']} batches)", flush=True)
+          f"({tm['candidate_batches']} batches; {CARD})", flush=True)
+    return counts, tm
+
+
+def ml1m_features_path(torch, RankFM, fused, scatter, train, x_uf, x_if):
+    """A featured ML-1M fit of 3 epochs: 2 at the main layout, 1 at the
+    chunk-tail layout (user features re-padded), all through featured B1."""
+    fkw = dict(user_features=feature_frame(x_uf, np.unique(train[:, 0]),
+                                           "user"),
+               item_features=feature_frame(x_if, np.unique(train[:, 1]),
+                                           "item"))
+    reset_launches(torch, fused, scatter)
+    t0 = time.time()
+    model = RankFM(factors=20, loss="warp", max_samples=20, beta=0.1,
+                   learning_schedule="invscaling", device="cuda").fit(
+        train, epochs=3, **fkw)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    launches = dict(fused.LAUNCHES)
+    counts = launches_of(fused, scatter)
+    plan = model.last_fit_plan_
+    check(plan.fused and plan.n_main == 3 and plan.chunk_tail == 1,
+          f"featured ML-1M plan {plan}")
+    main_key = (plan.chunk, fused.user_block(N_USERS, plan.user_block),
+                True, True)
+    tail_key = (plan.tail_chunk,
+                fused.user_block(N_USERS, plan.tail_user_block), True, True)
+    check(launches.get(main_key, 0) > 0 and launches.get(tail_key, 0) > 0
+          and counts["fused_chunk"] == 0,
+          f"featured ML-1M launches by layout {launches}")
+    lls = check_lls(model, 3, "featured ML-1M")
+    for k, v in model._weights.items():
+        check(np.isfinite(v).all(), f"featured ML-1M: {k} is not finite")
+    print(f"featured ML-1M fit: {fit_s:.2f} s for 3 epochs (plan chunk "
+          f"{plan.chunk} @ ub {plan.user_block}, tail chunk {plan.tail_chunk}"
+          f" @ ub {plan.tail_user_block}); lls "
+          f"{[round(x, 1) for x in lls]}; launches {launches}", flush=True)
     return counts
 
 
@@ -523,8 +687,9 @@ def run():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
-    print(f"card: {card}", flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
+    print(f"card: {CARD}", flush=True)
 
     # 2. build
     t0 = time.time()
@@ -539,22 +704,52 @@ def run():
     mask = rng.random(len(data)) < 0.8
     train, test = data[mask], data[~mask]
 
-    # 3. B1 vs plain at the ML-1M and Instacart shapes
+    # 3. B1 vs plain at the ML-1M and Instacart shapes, without and with
+    # side features
     kp = kernel_phase(torch, fused, train, dev, N_USERS, N_ITEMS, 20, 20,
                       ((256, 1024), (128, 256)))
-    ic_pairs, _ = make_instacart(np.random.default_rng(SEED + 1))
+    ic_pairs, _, ic_depts = make_instacart(np.random.default_rng(SEED + 1))
     kp_ic = kernel_phase(torch, fused, ic_pairs, dev, IC_USERS, IC_ITEMS, 50,
                          50, ((128, 1024),), nw=4, tag="Instacart")
+    kpf_ic = kernel_phase(torch, fused, ic_pairs, dev, IC_USERS, IC_ITEMS, 50,
+                          50, ((128, 1024),), nw=4, tag="Instacart",
+                          x_uf=one_hot(ic_depts["user"], IC_DEPTS),
+                          x_if=one_hot(ic_depts["item"], IC_DEPTS))
+    ml_uf, ml_if = ml1m_features(np.random.default_rng(SEED + 2))
+    # both feature sets at both layouts of the featured ML-1M fit (main and
+    # chunk-tail, the user features re-padded to the tail's rows)
+    kpf_ml = [kernel_phase(torch, fused, train, dev, N_USERS, N_ITEMS, 20, 20,
+                           layouts, x_uf=xu, x_if=xi)
+              for xu, xi, layouts in (
+                  (ml_uf, ml_if, ((256, 1024), (128, 256))),
+                  (ml_uf, None, ((256, 1024),)),
+                  (None, ml_if, ((256, 1024),)))]
 
     # 4. B3 / B2 vs plain
     up = update_phase(torch, scatter, dev)
 
-    # 5-7. the paths, each with its own launch counts
-    paths = [ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test),
-             instacart_path(torch, RankFM, evaluation, fused, scatter,
-                            training),
-             window_path(torch, RankFM, fused, scatter, train)]
+    # 5-9. the paths, each with its own launch counts
+    ic_data = instacart_data()
+    paths = [ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test)]
+    counts, tm_ic = instacart_path(torch, RankFM, evaluation, fused, scatter,
+                                   training, ic_data)
+    paths.append(counts)
+    counts, tmf_ic = instacart_path(torch, RankFM, evaluation, fused, scatter,
+                                    training, ic_data, features=True)
+    paths.append(counts)
+    print("Instacart fused epoch, device synced: featured "
+          f"{', '.join(f'{x:.3f}' for x in tmf_ic['fused'])} s vs "
+          f"featureless {', '.join(f'{x:.3f}' for x in tm_ic['fused'])} s; "
+          f"candidate epoch featured "
+          f"{', '.join(f'{x:.3f}' for x in tmf_ic['candidate'])} s vs "
+          f"{', '.join(f'{x:.3f}' for x in tm_ic['candidate'])} s ({CARD})",
+          flush=True)
+    paths.append(ml1m_features_path(torch, RankFM, fused, scatter, train,
+                                    ml_uf, ml_if))
+    paths.append(window_path(torch, RankFM, fused, scatter, train))
     total = {k: sum(p[k] for p in paths) for k in paths[0]}
+    check(all(total[k] > 0 for k in total),
+          f"a kernel was never launched on the paths: {total}")
 
     check("jax" not in sys.modules, "jax was imported")
     print(f"total {time.time() - t_start:.1f} s", flush=True)
@@ -565,6 +760,12 @@ def run():
          "launches": total["fused_chunk"],
          "max_abs_err": max(kp["max_abs_err"], kp_ic["max_abs_err"]),
          "ms": kp["c256"]["ms"], "plain_ms": kp["c256"]["plain_ms"]},
+        {"name": "fused_chunk_features", "route": "cuda",
+         "source": "rankfm_tpu_torch/csrc/fused_chunk.cu",
+         "replaces": "rankfm_tpu/ops/fused.py:545",
+         "launches": total["fused_chunk_features"],
+         "max_abs_err": max(k["max_abs_err"] for k in [kpf_ic] + kpf_ml),
+         "ms": kpf_ic["c128"]["ms"], "plain_ms": kpf_ic["c128"]["plain_ms"]},
         {"name": "table_update_sorted", "route": "cuda",
          "source": "rankfm_tpu_torch/csrc/table_update.cu",
          "replaces": "rankfm_tpu/ops/scatter.py:73",

@@ -7,9 +7,9 @@ backend can run the fused engine). The decision rules and their measured
 reasons are documented in the JAX package.
 
 The port runs the fused engine (with its chunk-tail or its candidate
-tail) and the XLA window and candidate engines. `plan_fit` raises
-`NotImplementedError`, naming the ROADMAP item, for every plan outside
-that: a mesh, side features on a fused plan, a wide-window tail,
+tail) and the XLA window and candidate engines, with or without side
+features. `plan_fit` raises `NotImplementedError`, naming the ROADMAP
+item, for every plan outside that: a mesh, a wide-window tail,
 pre-shuffled layouts.
 """
 
@@ -218,11 +218,6 @@ def _require_slice(spec, plan):
         raise NotImplementedError(
             "the wide-window tail is not ported (ROADMAP queue 1, "
             "deliberately not ported: tail_windows)")
-    if plan.fused and (spec.x_uf_any or spec.x_if_any):
-        raise NotImplementedError(
-            "side features are not ported to the fused kernel yet (ROADMAP "
-            "queue 2, B1 features); use_fused=False trains them on the XLA "
-            "engines")
     if plan.shuffle_layouts > 1:
         raise NotImplementedError(
             "pre-shuffled layouts are not ported (ROADMAP queue 1, "

@@ -7,12 +7,12 @@ model's device (keyword-only ``device``, default ``'cuda'``). Training runs
 the engines of the JAX package as its planner resolves them: the fused
 WARP/BPR engine (`rankfm_tpu_torch.ops.fused`, with its chunk-tail or its
 candidate tail) and the XLA window and candidate engines
-(`rankfm_tpu_torch.ops.training`). Their kernels (the fused chunk step and
-the table update) run on a GPU; on the CPU their plain versions run.
+(`rankfm_tpu_torch.ops.training`), each with or without side features.
+Their kernels (the fused chunk step and the table update) run on a GPU; on
+the CPU their plain versions run.
 
 Not ported yet (each raises or is absent until its ROADMAP item lands):
-checkpoints (`save`/`load`), the native C++ ingest, side features on the
-fused engine, and mesh placement.
+checkpoints (`save`/`load`), the native C++ ingest, and mesh placement.
 """
 
 from __future__ import annotations
@@ -210,19 +210,43 @@ class _FitRun:
                     torch.from_numpy(cids), torch.from_numpy(ublk),
                     torch.from_numpy(iblk))
 
+        # the tables are fresh tensors (copies): arrays handed out before
+        # this fit (`_weights`, `v_i`, ...) keep their values
         w = m._w
+        U_pad = fused_mod.user_pad(U, plan.user_block)
         tab_u, tab_i = fused_mod.extend_tables(
-            w["w_i"], w["v_u"], w["v_i"],
-            fused_mod.user_pad(U, plan.user_block), I_pad)
+            w["w_i"], w["v_u"], w["v_i"], U_pad, I_pad)
+        # side features: the padded feature matrices and the small packed
+        # feature tables (v_uf; v_if with w_if in col F)
+        x_uf = x_if = tab_uf = tab_if = None
+        if self.x_uf_any or self.x_if_any:
+            tab_uf, tab_if = fused_mod.extend_feature_tables(
+                w["v_uf"], w["w_if"], w["v_if"])
+            if self.x_uf_any:
+                x_uf = fused_mod.pad_feature_cols(m._x_uf_dev, U_pad)
+            else:
+                tab_uf = None
+            if self.x_if_any:
+                x_if = fused_mod.pad_feature_cols(m._x_if_dev, I_pad)
+            else:
+                tab_if = None
 
         def pull_back():
             w_i, v_u, v_i = fused_mod.extract_tables(
                 tab_u, tab_i, U, num_items, F)
-            m._w = dict(m._w, w_i=w_i, v_u=v_u, v_i=v_i)
+            upd = dict(w_i=w_i, v_u=v_u, v_i=v_i)
+            v_uf, w_if, v_if = fused_mod.extract_feature_tables(
+                tab_uf, tab_if, m.x_uf.shape[1], m.x_if.shape[1], F)
+            if tab_uf is not None:
+                upd["v_uf"] = v_uf
+            if tab_if is not None:
+                upd.update(w_if=w_if, v_if=v_if)
+            m._w = dict(m._w, **upd)
 
         self.pull = pull_back
 
         def run_epochs(epochs, chunk, ub, layout):
+            live = [t for t in (tab_u, tab_i, tab_uf, tab_if) if t is not None]
             for epoch in epochs:
                 t0 = time.time()
                 ll = fused_mod.fused_epoch(
@@ -231,22 +255,26 @@ class _FitRun:
                     num_items=num_items, factors=F,
                     max_samples=plan.max_samples,
                     batch_size=plan.batch_size, chunk=chunk, ub=ub,
-                    n_windows=plan.n_windows)
-                self.log_epoch(epoch, _ll_guard(ll, (tab_u, tab_i)),
-                               time.time() - t0)
+                    n_windows=plan.n_windows, x_uf=x_uf, x_if=x_if,
+                    tab_uf=tab_uf, tab_if=tab_if, beta=m.beta)
+                self.log_epoch(epoch, _ll_guard(ll, live), time.time() - t0)
 
         # chunk-tail schedule: the closing epochs run at the oracle-parity
         # layout (tail_chunk rows @ tail_user_block users), which pads the
-        # user table differently — the live tables are re-extended
+        # user table differently — the live tables (and the padded user
+        # features) are re-extended
         n_ct = plan.chunk_tail
         run_epochs(range(plan.n_main - n_ct), plan.chunk, plan.user_block,
                    layout_for(plan.chunk, plan.user_block))
         if n_ct:
             ub_t = plan.tail_user_block
+            U_pad_t = fused_mod.user_pad(U, ub_t)
             w_i, v_u, v_i = fused_mod.extract_tables(
                 tab_u, tab_i, U, num_items, F)
             tab_u, tab_i = fused_mod.extend_tables(
-                w_i, v_u, v_i, fused_mod.user_pad(U, ub_t), I_pad)
+                w_i, v_u, v_i, U_pad_t, I_pad)
+            if x_uf is not None:
+                x_uf = fused_mod.pad_feature_cols(m._x_uf_dev, U_pad_t)
             run_epochs(range(plan.n_main - n_ct, plan.n_main),
                        plan.tail_chunk, ub_t,
                        layout_for(plan.tail_chunk, ub_t))

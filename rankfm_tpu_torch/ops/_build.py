@@ -34,10 +34,11 @@ _ARGTYPES = {
     "fused_chunk": {
         # tab_u, tab_i, D, F, rec, packed, W, blk, ublk, iblk, acc, ll_rows,
         # chosen, nT, C, UB, BLK, NW, M, nm1, log_I, mult_bpr, seed, eta,
-        # dreg, stream
+        # dreg, x_uf, x_if, tab_uf, tab_if, P, Q, facc, dreg_f, stream
         "rfm_fused_batch": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                             _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                            ctypes.c_uint, _F, _F, _P],
+                            ctypes.c_uint, _F, _F, _P, _P, _P, _P, _I, _I,
+                            _P, _F, _P],
     },
     "table_update": {
         # tab, bias, N, F, idx_s, upd_s, B2, eta, c, stream

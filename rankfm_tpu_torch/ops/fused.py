@@ -18,9 +18,11 @@ The chunk step is `fused_batch`: on CUDA tensors it launches the Hopper
 kernel of ``csrc/fused_chunk.cu``; on CPU tensors it runs the plain
 version `fused_batch_reference`. Both apply the chunks of a batch strictly
 in order with the semantics of the TPU kernel's `_sub_round`
-(`rankfm_tpu/ops/fused.py:611-971`, featureless, f32 tables): gradients
-read at chunk start, then the user block, the positive block and each
-window block decayed and updated in that order.
+(`rankfm_tpu/ops/fused.py:611-971`, f32 tables, with or without side
+features): gradients read at chunk start, then the user block, the
+positive block and each window block decayed and updated in that order,
+and the feature tables (``tab_uf [P, F+2]``, ``tab_if [Q, F+2]``,
+`extend_feature_tables`) with their own decay rate.
 
 What the port drops, because it carries no semantics: the 128-lane tables
 (tables here are ``[rows, F+2]``: factors, then col F = 1 on the user side
@@ -50,8 +52,9 @@ UBLK = 1024          # default user-bucket cap; see pick_user_block
 # catalogs beyond this many window blocks leave the fused engine
 FUSED_NBLK_CAP = 64
 
-# kernel launches of `fused_batch`, keyed by (chunk rows, user block rows):
-# one count per batch whose chunks went through the CUDA kernel
+# kernel launches of `fused_batch`, keyed by (chunk rows, user block rows,
+# user features, item features): one count per batch whose chunks went
+# through the CUDA kernel
 LAUNCHES = Counter()
 
 
@@ -330,6 +333,43 @@ def extract_tables(tab_u, tab_i, num_users, num_items, factors):
     return w_i, v_u, v_i
 
 
+def extend_feature_tables(v_uf, w_if, v_if):
+    """``v_uf [P,F]``, ``w_if [Q]``, ``v_if [Q,F]`` -> ``tab_uf [P, F+2]``
+    (factors, col F stays 0 so the user row's constant-1 lane survives
+    augmentation) and ``tab_if [Q, F+2]`` (factors, col F = w_if: one
+    product ``x_if @ tab_if`` gives the feature representation and the
+    feature bias). `rankfm_tpu/ops/fused.py:400-415` without the 128-lane
+    padding."""
+    P, F = v_uf.shape
+    Q = v_if.shape[0]
+    tuf = torch.zeros((P, F + 2), dtype=torch.float32, device=v_uf.device)
+    tuf[:, :F] = v_uf
+    tif = torch.zeros((Q, F + 2), dtype=torch.float32, device=v_if.device)
+    tif[:, :F] = v_if
+    tif[:, F] = w_if
+    return tuf, tif
+
+
+def extract_feature_tables(tab_uf, tab_if, num_uf, num_if, factors):
+    """Inverse of `extend_feature_tables`: ``(v_uf, w_if, v_if)`` copies,
+    None for an absent table."""
+    v_uf = None if tab_uf is None else tab_uf[:num_uf, :factors].clone()
+    if tab_if is None:
+        return v_uf, None, None
+    return (v_uf, tab_if[:num_if, factors].clone(),
+            tab_if[:num_if, :factors].clone())
+
+
+def pad_feature_cols(x, rows_pad):
+    """``x [N, K] -> [rows_pad, K]`` f32 with zero pad rows: the per-fit
+    feature layout of the featured chunk step (the JAX package's
+    `pad_feature_cols` pads the columns to 128 lanes as well)."""
+    out = torch.zeros((rows_pad, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    out[:x.shape[0]] = x
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the chunk step, plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -378,10 +418,20 @@ def select_key(pw, nonmem, u01, r1, M, num_items):
     return key, sampled, mult
 
 
+def _decay_c(dreg):
+    """The per-touch decay factor ``max(1 - dreg, 1e-8)`` in f32."""
+    return float(np.maximum(np.float32(1.0) - np.float32(dreg),
+                            np.float32(1e-8)))
+
+
 def _chunk_reference(tab_u, tab_i, rec, packed, blks, ubase, ibase, u01, r1,
-                     eta, dreg, F, M, BLK, UB, num_items):
+                     eta, dreg, F, M, BLK, UB, num_items, feats=None):
     """One chunk, in place on the tables. Returns the per-row ll terms,
-    each row's lowest chosen window slot (-1: none) and the key matrix."""
+    each row's lowest chosen window slot (-1: none) and the key matrix.
+
+    ``dreg`` is the pair ``(eta*2*alpha, eta*2*beta)``; ``feats`` is None
+    or ``(x_uf, x_if, tab_uf, tab_if)`` with None for an absent side (the
+    TPU kernel's ``HAS_UF``/``HAS_IF``)."""
     dev = tab_u.device
     p0 = rec[:, 0]
     sw = rec[:, 1].contiguous().view(torch.float32)
@@ -400,8 +450,30 @@ def _chunk_reference(tab_u, tab_i, rec, packed, blks, ubase, ibase, u01, r1,
     u_rows = tab_u[u_abs]                                   # [C, D]
     i_rows = tab_i[i_abs]
     tw = tab_i[items]                                       # [W2, D]
-    ut_ui = (u_rows * i_rows).sum(1)
-    pw = ut_ui[:, None] - u_rows @ tw.T                     # [C, W2]
+    x_uf, x_if, tab_uf, tab_if = feats or (None,) * 4
+    has_uf, has_if = tab_uf is not None, tab_if is not None
+    # side-feature representations (`rankfm_tpu/ops/fused.py:704-754`):
+    # the user row gains x_uf[u] @ tab_uf, every item row x_if @ tab_if
+    # (col F: the feature bias); the reference FM has no uf x if term, so
+    # the cross products are taken out again
+    u_aug, i_tot, tw_tot = u_rows, i_rows, tw
+    if has_uf:
+        xuf_rows = x_uf[u_abs]                              # [C, P]
+        ufrep = xuf_rows @ tab_uf
+        u_aug = u_rows + ufrep
+    if has_if:
+        xif_i = x_if[i_abs]                                 # [C, Q]
+        xif_win = x_if[items]                               # [W2, Q]
+        ifrep_i = xif_i @ tab_if
+        ifrep_win = xif_win @ tab_if
+        i_tot = i_rows + ifrep_i
+        tw_tot = tw + ifrep_win
+    ut_ui = (u_aug * i_tot).sum(1)
+    all_w = u_aug @ tw_tot.T                                # [C, W2]
+    if has_uf and has_if:
+        ut_ui = ut_ui - (ufrep * ifrep_i).sum(1)
+        all_w = all_w - ufrep @ ifrep_win.T
+    pw = ut_ui[:, None] - all_w
     words = (blks_d[:, None] * LW + (jloc % LW)[None, :]).reshape(-1)
     bits = (jloc // LW).repeat(NW)
     # guard rows may point past the pack: their user index is clamped
@@ -416,21 +488,27 @@ def _chunk_reference(tab_u, tab_i, rec, packed, blks, ubase, ibase, u01, r1,
     w_j = oh_j / torch.clamp(cnt_j, min=1.0)[:, None]       # tie split
     has_j = (cnt_j > 0).to(torch.float32)
     j_rows = w_j @ tw                                       # [C, D]
-    pw_sel = ut_ui - (u_rows * j_rows).sum(1)
+    j_tot = w_j @ tw_tot if has_if else j_rows
+    ut_uj = (u_aug * j_tot).sum(1)
+    if has_uf and has_if:
+        ut_uj = ut_uj - (ufrep * (j_tot - j_rows)).sum(1)
+    pw_sel = ut_ui - ut_uj
     gate = valid * has_j
     d = gate * sw * mult * torch.sigmoid(-pw_sel)
     ll = torch.where(gate > 0, torch.nn.functional.logsigmoid(pw_sel),
                      torch.zeros_like(pw_sel))
     chosen = torch.where(gate > 0, key.argmax(1), -1).to(torch.int32)
 
-    # gradient rows + per-row touch counts (valid rows only)
+    # gradient rows + per-row touch counts (valid rows only); with side
+    # features the user gradient is the full utility derivative and the
+    # item gradient the augmented user row
     D = tab_u.shape[1]
-    g_u = d[:, None] * (i_rows - j_rows)
+    g_u = d[:, None] * (i_tot - j_tot)
     acc_u = torch.zeros((UB, D), device=dev).index_add_(
         0, u_loc[ok].long(), g_u[ok])
     cnt_u = torch.zeros(UB, device=dev).index_add_(0, u_loc[ok].long(),
                                                    valid[ok])
-    g_ip = d[:, None] * u_rows                    # col F = d: the bias grad
+    g_ip = d[:, None] * u_aug                     # col F = d: the bias grad
     acc_p = torch.zeros((BLK, D), device=dev).index_add_(
         0, (i1[ok] - 1).long(), g_ip[ok])
     cnt_p = torch.zeros(BLK, device=dev).index_add_(0, (i1[ok] - 1).long(),
@@ -442,7 +520,7 @@ def _chunk_reference(tab_u, tab_i, rec, packed, blks, ubase, ibase, u01, r1,
     # touches, c = max(1 - dreg, 1e-8)), in the kernel's order: user block,
     # positive block, then each window block (a block drawn twice is
     # updated twice)
-    c = float(np.maximum(np.float32(1.0) - np.float32(dreg), np.float32(1e-8)))
+    c = _decay_c(dreg[0])
     rows = slice(ubase, ubase + UB)
     tab_u[rows, :F] = decay_rows(tab_u[rows, :F], acc_u[:, :F], cnt_u, eta, c)
     rows = slice(ibase, ibase + BLK)
@@ -454,26 +532,79 @@ def _chunk_reference(tab_u, tab_i, rec, packed, blks, ubase, ibase, u01, r1,
         rows = slice(b * BLK, (b + 1) * BLK)
         tab_i[rows, :F + 1] = decay_rows(tab_i[rows, :F + 1],
                                          acc_w[sl, :F + 1], cnt_w[sl], eta, c)
+
+    # feature tables (`rankfm_tpu/ops/fused.py:901-971`): the same
+    # geometric per-touch decay at c = 1 - eta*2*beta, one touch per
+    # sample with a negative (valid * has_j)
+    if has_uf or has_if:
+        cf = _decay_c(dreg[1])
+        touch = gate[:, None]
+    if has_if:
+        # v_if[q] is touched by a nonzero feature difference, w_if (col F,
+        # payload d * the raw user row's constant 1) by every sample
+        xif_j = w_j @ xif_win                       # tie-split mean [C, Q]
+        diff = xif_i - xif_j
+        g_if = diff.T @ (d[:, None] * u_rows)       # [Q, D]
+        cnt_if = ((diff != 0).to(torch.float32) * touch).sum(0)
+        n_ok = gate.sum().expand(tab_if.shape[0])
+        tab_if[:, :F] = decay_rows(tab_if[:, :F], g_if[:, :F], cnt_if, eta,
+                                   cf)
+        tab_if[:, F] = decay_rows(tab_if[:, F], g_if[:, F], n_ok, eta, cf)
+    if has_uf:
+        # v_uf: payload d * the RAW item rows' difference, touched by a
+        # nonzero x_uf; col F stays 0
+        g_uf = xuf_rows.T @ (d[:, None] * (i_rows - j_rows))    # [P, D]
+        cnt_uf = ((xuf_rows != 0).to(torch.float32) * touch).sum(0)
+        tab_uf[:, :F] = decay_rows(tab_uf[:, :F], g_uf[:, :F], cnt_uf, eta,
+                                   cf)
+        tab_uf[:, F] = 0.0
     return ll, chosen, key
+
+
+def _step_args(dreg, tab_u, tab_i, x_uf, x_if, tab_uf, tab_if):
+    """``((eta*2*alpha, eta*2*beta), feats)`` from `fused_batch`'s
+    arguments; ``feats`` is None without side features. Each feature
+    matrix comes with its table and is padded to its side's table rows."""
+    for x, tab, rows, side in ((x_uf, tab_uf, tab_u, "user"),
+                               (x_if, tab_if, tab_i, "item")):
+        if (x is None) != (tab is None):
+            raise ValueError(f"fused_batch: the {side} feature matrix and "
+                             f"its table come together")
+        if x is not None and x.shape[0] != rows.shape[0]:
+            raise ValueError(
+                f"fused_batch: {side} features have {x.shape[0]} rows, the "
+                f"{side} table {rows.shape[0]} (pad_feature_cols)")
+    featured = tab_uf is not None or tab_if is not None
+    pair = (float(dreg[0]), float(dreg[1]))
+    return pair, ((x_uf, x_if, tab_uf, tab_if) if featured else None)
 
 
 def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
                           eta, dreg, *, factors, max_samples, ub_rows,
-                          num_items, chosen=None, keys=None):
+                          num_items, chosen=None, keys=None, x_uf=None,
+                          x_if=None, tab_uf=None, tab_if=None):
     """Plain PyTorch version of one batch of the fused kernel.
 
     ``rec [nT*C, 2]`` int32 records in visit order, ``packed [U, W]``
     int32 history pack, ``blk [nT, NW]``, ``ublk [nT]``, ``iblk [nT]`` int32
     block ids, ``ub_rows`` the user block's rows (`user_block`), ``seed``
-    the batch seed, ``dreg = eta * 2 * alpha``. Updates
-    ``tab_u``/``tab_i`` IN PLACE, chunk after chunk, and returns the
-    batch's log-likelihood (0-dim f32). The random draws are the kernel's
-    Philox stream (`_philox.chunk_draws`).
+    the batch seed, ``dreg`` the pair ``(eta * 2 * alpha, eta * 2 * beta)``
+    (the JAX kernel's ``dreg``). Updates ``tab_u``/``tab_i`` IN
+    PLACE, chunk after chunk, and returns the batch's log-likelihood (0-dim
+    f32). The random draws are the kernel's Philox stream
+    (`_philox.chunk_draws`).
+
+    Side features (the TPU kernel's ``HAS_UF``/``HAS_IF``): ``x_uf
+    [U_pad, P]`` with ``tab_uf [P, F+2]``, and/or ``x_if [I_pad, Q]`` with
+    ``tab_if [Q, F+2]`` (`pad_feature_cols`, `extend_feature_tables`);
+    the feature tables are updated in place too.
 
     Optional diagnostics: ``chosen [nT*C]`` int32 receives each row's
     lowest chosen window slot (-1: none), and the list ``keys`` each
     chunk's ``[C, NW*BLK]`` selection keys.
     """
+    dreg, feats = _step_args(dreg, tab_u, tab_i, x_uf, x_if, tab_uf,
+                             tab_if)
     nT, NW = blk.shape
     C = rec.shape[0] // nT
     BLK = block_size(num_items)
@@ -485,7 +616,7 @@ def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
         ll, j, key = _chunk_reference(
             tab_u, tab_i, rec[k * C:(k + 1) * C], packed, blk_h[k],
             int(ublk_h[k]) * ub_rows, int(iblk_h[k]) * BLK, u01_k, r1_k,
-            eta, dreg, factors, max_samples, BLK, ub_rows, num_items)
+            eta, dreg, factors, max_samples, BLK, ub_rows, num_items, feats)
         lls.append(ll)
         if chosen is not None:
             chosen[k * C:(k + 1) * C] = j
@@ -495,7 +626,8 @@ def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
 
 
 def fused_batch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
-                *, factors, max_samples, ub_rows, num_items, chosen=None):
+                *, factors, max_samples, ub_rows, num_items, chosen=None,
+                x_uf=None, x_if=None, tab_uf=None, tab_if=None):
     """One batch of the fused WARP/BPR step (see `fused_batch_reference`
     for the arguments). CUDA tensors go through the Hopper kernel; CPU
     tensors through the plain version. Updates the tables in place and
@@ -504,11 +636,15 @@ def fused_batch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
         return fused_batch_reference(
             tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
             factors=factors, max_samples=max_samples, ub_rows=ub_rows,
-            num_items=num_items, chosen=chosen)
+            num_items=num_items, chosen=chosen, x_uf=x_uf, x_if=x_if,
+            tab_uf=tab_uf, tab_if=tab_if)
     if tab_u.device.type != "cuda":
         raise ValueError(f"fused_batch runs on cuda or cpu, not {tab_u.device}")
+    dreg, feats = _step_args(dreg, tab_u, tab_i, x_uf, x_if, tab_uf,
+                             tab_if)
     return _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta,
-                   dreg, factors, max_samples, ub_rows, num_items, chosen)
+                   dreg, factors, max_samples, ub_rows, num_items, chosen,
+                   feats)
 
 
 def _check(name, t, dtype, device, ndim):
@@ -521,10 +657,12 @@ def _check(name, t, dtype, device, ndim):
 
 
 def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
-            F, M, UB, num_items, chosen):
+            F, M, UB, num_items, chosen, feats):
     from rankfm_tpu_torch.ops import _build
 
     dev = tab_u.device
+    x_uf, x_if, tab_uf, tab_if = feats or (None,) * 4
+    # the optional tensors (chosen, features) are checked when given
     for name, t, dt, nd in (("tab_u", tab_u, torch.float32, 2),
                             ("tab_i", tab_i, torch.float32, 2),
                             ("rec", rec, torch.int32, 2),
@@ -532,43 +670,66 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
                             ("blk", blk, torch.int32, 2),
                             ("ublk", ublk, torch.int32, 1),
                             ("iblk", iblk, torch.int32, 1),
-                            ("chosen", chosen, torch.int32, 1)):
-        if t is not None or name != "chosen":
+                            ("chosen", chosen, torch.int32, 1),
+                            ("x_uf", x_uf, torch.float32, 2),
+                            ("x_if", x_if, torch.float32, 2),
+                            ("tab_uf", tab_uf, torch.float32, 2),
+                            ("tab_if", tab_if, torch.float32, 2)):
+        if t is not None:
             _check(name, t, dt, dev, nd)
     nT, NW = blk.shape
     BLK = block_size(num_items)
     D = F + 2
     C = rec.shape[0] // nT
+    P = 0 if x_uf is None else x_uf.shape[1]
+    Q = 0 if x_if is None else x_if.shape[1]
     if (tab_u.shape[1] != D or tab_i.shape[1] != D or rec.shape[1] != 2
             or rec.shape[0] != nT * C or ublk.shape[0] != nT
             or iblk.shape[0] != nT
             or packed.shape[1] != item_pad(num_items) // BITS_PER_LANE
             or tab_i.shape[0] != item_pad(num_items)
             or tab_u.shape[0] % UB or UB > UBLK
-            or (chosen is not None and chosen.shape != (nT * C,))):
+            or (chosen is not None and chosen.shape != (nT * C,))
+            or (x_uf is not None and tab_uf.shape != (P, D))
+            or (x_if is not None and tab_if.shape != (Q, D))):
         raise ValueError(
             f"fused_batch: inconsistent shapes tab_u={tuple(tab_u.shape)} "
             f"tab_i={tuple(tab_i.shape)} rec={tuple(rec.shape)} "
             f"packed={tuple(packed.shape)} blk={tuple(blk.shape)} "
-            f"F={F} UB={UB} num_items={num_items}")
+            + "".join(f"{n}={tuple(t.shape)} " for n, t in (
+                ("x_uf", x_uf), ("tab_uf", tab_uf), ("x_if", x_if),
+                ("tab_if", tab_if)) if t is not None)
+            + f"F={F} UB={UB} num_items={num_items}")
     acc = torch.zeros((UB + (1 + NW) * BLK) * D, dtype=torch.float32,
                       device=dev)
+    # the featured kernel's scratch (`rfm_fused_batch` in csrc/
+    # fused_chunk.cu): the chunk's feature representations, the feature
+    # gradients and touch counts, and one count of rows with a negative
+    # per chunk
+    n_rep = ((UB if x_uf is not None else 0)
+             + ((1 + NW) * BLK if x_if is not None else 0))
+    facc = (torch.zeros((n_rep + P + Q) * D + P + Q + nT,
+                        dtype=torch.float32, device=dev) if feats else None)
     ll_rows = torch.empty(nT * C, dtype=torch.float32, device=dev)
     log_I = math.log(num_items) if num_items > 1 else 1.0
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = _build.load().rfm_fused_batch(
         tab_u.data_ptr(), tab_i.data_ptr(), D, F,
         rec.data_ptr(), packed.data_ptr(), packed.shape[1],
         blk.data_ptr(), ublk.data_ptr(), iblk.data_ptr(),
-        acc.data_ptr(), ll_rows.data_ptr(),
-        None if chosen is None else chosen.data_ptr(),
+        acc.data_ptr(), ll_rows.data_ptr(), ptr(chosen),
         nT, C, UB, BLK, NW, M, float(num_items - 1), log_I,
         math.log(max(num_items - 1, 1)) / log_I,
-        int(seed) & 0xFFFFFFFF, float(eta), float(dreg),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(seed) & 0xFFFFFFFF, float(eta), dreg[0],
+        ptr(x_uf), ptr(x_if), ptr(tab_uf), ptr(tab_if), P, Q, ptr(facc),
+        dreg[1], torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fused chunk kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(err)})")
-    LAUNCHES[(C, UB)] += 1
+    LAUNCHES[(C, UB, x_uf is not None, x_if is not None)] += 1
     return ll_rows.sum()
 
 
@@ -604,15 +765,19 @@ def shuffle_keys(group, rnd_bits, gen):
 
 def fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
                 num_users, num_items, factors, max_samples, batch_size,
-                chunk, ub, n_windows=None):
+                chunk, ub, n_windows=None, x_uf=None, x_if=None,
+                tab_uf=None, tab_if=None, beta=0.0):
     """One epoch of the fused engine (`_epoch_body`,
     `rankfm_tpu/ops/fused.py:1273-1342`): one segmented-shuffle sort, a
     rotation of the batch order, per-batch seeds and per-chunk window
     draws, then `fused_batch` for each batch in order.
 
     ``layout`` is `make_records_grouped`'s tuple with ``rec`` on the
-    tables' device and the rest as CPU tensors. Updates the tables in
-    place; returns the epoch log-likelihood (0-dim f32 on the device)."""
+    tables' device and the rest as CPU tensors. Side features come as in
+    `fused_batch_reference` (``x_uf`` padded to the user table's rows,
+    ``x_if`` to the item table's), with ``beta`` their L2 rate. Updates the
+    tables in place; returns the epoch log-likelihood (0-dim f32 on the
+    device)."""
     rec, group, cids, ublk, iblk = layout
     dev = tab_u.device
     NBLK = item_pad(num_items) // block_size(num_items)
@@ -632,12 +797,16 @@ def fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     ublk_d, iblk_d = ublk_b.to(dev), iblk_b.to(dev)
     chunks = rec_s.view(-1, chunk, 2)
     idx = cids_b.to(dev).long()
-    dreg = np.float32(eta) * np.float32(2.0 * np.float32(alpha))
+    # the JAX pair [eta*2*alpha, eta*2*beta] (`rankfm_tpu/ops/fused.py:
+    # 1322-1326`)
+    dreg = tuple(float(np.float32(eta) * np.float32(2.0 * np.float32(r)))
+                 for r in (alpha, beta))
     ll = torch.zeros((), dtype=torch.float32, device=dev)
     for b in range(nb):
         ll = ll + fused_batch(
             tab_u, tab_i, chunks[idx[b]].reshape(-1, 2), packed, blks[b],
             ublk_d[b], iblk_d[b], seeds[b], float(np.float32(eta)),
-            float(dreg), factors=factors, max_samples=max_samples,
-            ub_rows=UB, num_items=num_items)
+            dreg, factors=factors, max_samples=max_samples,
+            ub_rows=UB, num_items=num_items, x_uf=x_uf, x_if=x_if,
+            tab_uf=tab_uf, tab_if=tab_if)
     return ll

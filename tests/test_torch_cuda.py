@@ -1,5 +1,6 @@
-"""The kernels on the card (the fused chunk step, the sorted and dense
-table updates), and the build and dispatch rules around them.
+"""The kernels on the card (the fused chunk step, with and without side
+features, the sorted and dense table updates), and the build and dispatch
+rules around them.
 
 Tests marked ``cuda`` need an NVIDIA GPU with nvcc and skip without one;
 run them there with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -34,7 +35,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, nw, rng):
+def _case(dev, nw, rng, n_uf=0, n_if=0):
+    """A 2,048-row batch at chunk 128 @ user block 256 over 3 window
+    blocks, with ``n_uf`` user / ``n_if`` item feature columns (one-hot
+    plus a multi-hot column; none when 0)."""
     U, I, F, C, ub = 700, 2500, 20, 128, 256
     hist = rng.random((U, I)) < 0.3
     offsets = np.zeros(U + 1, np.int32)
@@ -59,11 +63,32 @@ def _case(dev, nw, rng):
         torch.from_numpy(rng.normal(0, 0.1, (U, F)).astype(np.float32)).to(dev),
         torch.from_numpy(rng.normal(0, 0.1, (I, F)).astype(np.float32)).to(dev),
         fused.user_pad(U, ub), fused.item_pad(I))
+    feats = {}
+    for side, n, rows, pad in (("uf", n_uf, U, fused.user_pad(U, ub)),
+                               ("if", n_if, I, fused.item_pad(I))):
+        if n:
+            x = np.zeros((rows, n), np.float32)
+            x[np.arange(rows), rng.integers(0, n, rows)] = 1.0
+            x[:, 0] = np.maximum(x[:, 0], rng.random(rows) < 0.2)
+            feats[f"x_{side}"] = fused.pad_feature_cols(
+                torch.from_numpy(x).to(dev), pad)
+    if feats:
+        tuf, tif = fused.extend_feature_tables(
+            *(torch.from_numpy(rng.normal(0, sd, shape).astype(
+                np.float32)).to(dev)
+              for sd, shape in ((0.1, (max(n_uf, 1), F)), (0.05, max(n_if, 1)),
+                                (0.1, (max(n_if, 1), F)))))
+        if n_uf:
+            feats["tab_uf"] = tuf
+        if n_if:
+            feats["tab_if"] = tif
+    dreg = (float(np.float32(0.1) * np.float32(0.02)),
+            float(np.float32(0.1) * np.float32(0.2)))
     args = (rec_b, packed, torch.from_numpy(blk).to(dev),
             torch.from_numpy(ublk[0]).to(dev), torch.from_numpy(iblk[0]).to(dev),
-            77, 0.1, float(np.float32(0.1) * np.float32(0.02)))
+            77, 0.1, dreg)
     kw = dict(factors=F, ub_rows=fused.user_block(U, ub), num_items=I)
-    return tabs, args, kw, nT * C
+    return (tabs, feats) if feats else tabs, args, kw, nT * C
 
 
 @pytest.mark.cuda
@@ -90,6 +115,59 @@ def test_kernel_matches_plain_version(cuda, M, nw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_uf,n_if", [(21, 18), (30, 0), (0, 18)],
+                         ids=["both", "user-only", "item-only"])
+def test_featured_kernel_matches_plain_version(cuda, n_uf, n_if):
+    """The featured kernel against its plain version: the row tables and
+    the feature tables to 1e-4 absolute (f32 atomics in a run-dependent
+    order), the ll to 1e-4 relative, 99.9% of the negatives equal."""
+    rng = np.random.default_rng(n_uf + n_if)
+    (tabs, feats), args, kw, rows = _case(cuda, 4, rng, n_uf, n_if)
+    tk = [t.clone() for t in tabs]
+    tr = [t.clone() for t in tabs]
+    fk = {k: v.clone() for k, v in feats.items()}
+    fr = {k: v.clone() for k, v in feats.items()}
+    ch_k = torch.empty(rows, dtype=torch.int32, device=cuda)
+    ch_r = torch.empty_like(ch_k)
+    key = (128, kw["ub_rows"], n_uf > 0, n_if > 0)
+    before = fused.LAUNCHES[key]
+    ll_k = float(fused.fused_batch(*tk, *args, max_samples=20, chosen=ch_k,
+                                   **kw, **fk))
+    assert fused.LAUNCHES[key] == before + 1
+    ll_r = float(fused.fused_batch_reference(*tr, *args, max_samples=20,
+                                             chosen=ch_r, **kw, **fr))
+    assert abs(ll_k - ll_r) <= 1e-4 * abs(ll_r)
+    valid = ((args[0][:, 0] >> 21) & 1).bool()
+    assert (ch_k == ch_r)[valid].float().mean() >= 0.999
+    for a, b, t0 in zip(tk, tr, tabs):
+        assert float((a - b).abs().max()) <= 1e-4
+        assert float((a - t0).abs().max()) > 0
+    for name in ("tab_uf", "tab_if"):
+        if name in feats:
+            assert float((fk[name] - fr[name]).abs().max()) <= 1e-4
+            assert float((fk[name] - feats[name]).abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_featured_kernel_wrapper_rejects_bad_feature_shapes(cuda):
+    rng = np.random.default_rng(0)
+    (tabs, feats), args, kw, _ = _case(cuda, 1, rng, 5, 6)
+    kw = dict(kw, max_samples=5)
+    bad = dict(feats, tab_if=feats["tab_if"][:, :-1].contiguous())
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        fused.fused_batch(*tabs, *args, **kw, **bad)
+    bad = dict(feats, x_if=feats["x_if"][:, :4].contiguous())
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        fused.fused_batch(*tabs, *args, **kw, **bad)
+    bad = dict(feats, x_uf=feats["x_uf"].double())
+    with pytest.raises(ValueError, match="x_uf"):
+        fused.fused_batch(*tabs, *args, **kw, **bad)
+    bad = dict(feats, tab_uf=feats["tab_uf"].cpu())
+    with pytest.raises(ValueError, match="tab_uf"):
+        fused.fused_batch(*tabs, *args, **kw, **bad)
+
+
+@pytest.mark.cuda
 def test_gpu_fit_matches_cpu_fit(cuda):
     """A whole fit through the kernel and through the plain version: both
     draw the same shuffles, windows and Philox bits, so they differ only by
@@ -109,6 +187,48 @@ def test_gpu_fit_matches_cpu_fit(cuda):
     assert mg.last_fit_plan_ == mc.last_fit_plan_
     assert mg.last_fit_plan_.chunk_tail == 1
     for k in ("w_i", "v_u", "v_i"):
+        want = mc._weights[k]
+        assert np.abs(mg._weights[k] - want).max() <= 1e-3 * np.abs(want).max()
+    np.testing.assert_allclose(
+        [r["log_likelihood"] for r in mg.training_log_],
+        [r["log_likelihood"] for r in mc.training_log_], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gpu_featured_fit_matches_cpu_fit(cuda):
+    """A featured fit through the featured kernel and through the plain
+    version (3 epochs: main layout, then the chunk-tail with the user
+    features re-padded): the same draws, so the six weight tensors differ
+    only by f32 summation order."""
+    import pandas as pd
+
+    from rankfm_tpu_torch import RankFM
+
+    rng = np.random.default_rng(4)
+    users = np.repeat(np.arange(500), 30)
+    train = np.stack([users, rng.integers(0, 2300, len(users))], 1)
+    uids, iids = np.unique(train[:, 0]), np.unique(train[:, 1])
+    uf = pd.DataFrame({"user_id": uids})
+    for k in range(4):
+        uf[f"uf{k}"] = (uids % 4 == k).astype(np.float32)
+    itf = pd.DataFrame({"item_id": iids})
+    for k in range(6):
+        itf[f"if{k}"] = (iids % 6 == k).astype(np.float32)
+    cfg = dict(factors=12, loss="warp", max_samples=10,
+               learning_schedule="invscaling")
+    fused.LAUNCHES.clear()
+    mg = RankFM(**cfg, device="cuda").fit(
+        train, user_features=uf, item_features=itf, epochs=3)
+    plan = mg.last_fit_plan_
+    assert plan.fused and plan.chunk_tail == 1
+    assert fused.LAUNCHES[(plan.chunk, fused.user_block(500), True, True)] > 0
+    assert fused.LAUNCHES[(plan.tail_chunk, plan.tail_user_block, True,
+                           True)] > 0
+    assert not any(not (k[2] and k[3]) for k in fused.LAUNCHES)
+    mc = RankFM(**cfg, device="cpu").fit(
+        train, user_features=uf, item_features=itf, epochs=3)
+    assert mg.last_fit_plan_ == mc.last_fit_plan_
+    for k in ("w_i", "v_u", "v_i", "w_if", "v_uf", "v_if"):
         want = mc._weights[k]
         assert np.abs(mg._weights[k] - want).max() <= 1e-3 * np.abs(want).max()
     np.testing.assert_allclose(
@@ -267,7 +387,7 @@ def test_table_update_refuses_other_devices():
 def test_fused_batch_refuses_other_devices():
     t = torch.zeros((8, 4), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fused.fused_batch(t, t, t, t, t, t, t, 0, 0.1, 0.002, factors=2,
+        fused.fused_batch(t, t, t, t, t, t, t, 0, 0.1, (0.002, 0.0), factors=2,
                           max_samples=1, ub_rows=8, num_items=8)
 
 

@@ -20,8 +20,6 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from rankfm_tpu.ops import fused as jfused
 from rankfm_tpu.ops.training import window_warp_select
@@ -29,71 +27,16 @@ from rankfm_tpu_torch.ops import _philox
 from rankfm_tpu_torch.ops import fused as tfused
 from rankfm_tpu_torch.utils.convert import tables_from_jax
 
+from torch_common import (FORCED_SHAPE, forced_case,  # noqa: F401
+                          pallas_interpret, rel_err)
+
 REL = 2e-2
-
-
-@pytest.fixture
-def pallas_interpret(monkeypatch):
-    """Run Pallas TPU kernels in interpret mode on the CPU."""
-    orig = pl.pallas_call
-
-    def interpret_call(*args, **kwargs):
-        kwargs.pop("compiler_params", None)
-        kwargs["interpret"] = pltpu.InterpretParams()
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(pl, "pallas_call", interpret_call)
-
-
-def _rel(got, want):
-    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-12))
-
-
-# 3 user blocks of 256 (U_pad 768) x a 3-block catalog (BLK 1024, I_pad 3072)
-U, I, F, UB, C, NT = 700, 2500, 8, 256, 128, 4
-# per chunk: (user block, positive block, window block); chunk 1 draws its
-# positive block as the window
-CHUNKS = [(0, 0, 1), (1, 2, 2), (2, 1, 0), (0, 2, 1)]
-
-
-def _forced_case(rng, full_history=False):
-    """Histories holding all items but one per block (or all of them), a
-    batch of NT chunks of C rows (8 guard rows each) and initial tables."""
-    BLK = jfused.block_size(I)
-    nblk = jfused.item_pad(I) // BLK
-    free = np.stack([rng.integers(0, min(BLK, I - b * BLK), U) + b * BLK
-                     for b in range(nblk)], 1)                 # [U, nblk]
-    hist = np.ones((U, I), bool)
-    if not full_history:
-        hist[np.arange(U)[:, None], free] = False
-    offsets = np.zeros(U + 1, np.int32)
-    offsets[1:] = np.cumsum(hist.sum(1))
-    flat = np.nonzero(hist)[1].astype(np.int32)
-    packed = jfused.pack_history(offsets, flat, U, I)
-
-    rec = np.zeros((NT * C, 2), np.int32)
-    for k, (ub_k, ib_k, _) in enumerate(CHUNKS):
-        n_real = min(UB, U - ub_k * UB)
-        for r in range(C - 8):
-            u_loc = int(rng.integers(0, n_real))
-            u = ub_k * UB + u_loc
-            items = np.flatnonzero(hist[u, ib_k * BLK:(ib_k + 1) * BLK])
-            i_loc = int(rng.choice(items))
-            sw = np.float32(rng.uniform(0.5, 2.0))
-            rec[k * C + r, 0] = u_loc | ((i_loc + 1) << 10) | (1 << 21)
-            rec[k * C + r, 1] = np.array(sw).view(np.int32)
-    blk = np.array([[w] for _, _, w in CHUNKS], np.int32)
-    ublk = np.array([c[0] for c in CHUNKS], np.int32)
-    iblk = np.array([c[1] for c in CHUNKS], np.int32)
-    w_i = rng.normal(0, 0.05, I).astype(np.float32)
-    v_u = rng.normal(0, 0.1, (U, F)).astype(np.float32)
-    v_i = rng.normal(0, 0.1, (I, F)).astype(np.float32)
-    return packed, rec, blk, ublk, iblk, (w_i, v_u, v_i)
+U, I, F, UB, C, NT = FORCED_SHAPE
 
 
 def _run_both(loss_m, full_history=False, seed=0):
     rng = np.random.default_rng(seed)
-    packed, rec, blk, ublk, iblk, (w_i, v_u, v_i) = _forced_case(
+    packed, rec, blk, ublk, iblk, (w_i, v_u, v_i) = forced_case(
         rng, full_history)
     eta, alpha = 0.1, 0.01
     dreg = np.float32(eta) * np.float32(2 * np.float32(alpha))
@@ -115,7 +58,7 @@ def _run_both(loss_m, full_history=False, seed=0):
     ll_t = tfused.fused_batch_reference(
         tab_u, tab_i, torch.from_numpy(rec), torch.from_numpy(packed),
         torch.from_numpy(blk), torch.from_numpy(ublk), torch.from_numpy(iblk),
-        7, eta, float(dreg), factors=F, max_samples=loss_m, ub_rows=UB,
+        7, eta, (float(dreg), 0.0), factors=F, max_samples=loss_m, ub_rows=UB,
         num_items=I)
     # user rows past U are padding: the TPU kernel resets their col F to
     # 1 when it rewrites a block, the port leaves them alone
@@ -131,12 +74,12 @@ def test_batch_matches_pallas_kernel_forced_negatives(pallas_interpret,
     # the JAX tables keep lanes beyond F+1 at zero
     assert not tu_j[:, F + 2:].any() and not ti_j[:, F + 2:].any()
     tu_j, ti_j = tu_j[:, :F + 2], ti_j[:, :F + 2]
-    assert _rel(tu_t, tu_j) < REL and _rel(ti_t, ti_j) < REL
+    assert rel_err(tu_t, tu_j) < REL and rel_err(ti_t, ti_j) < REL
     # the updates themselves, not only the tables they land in
     for got, want, old in ((tu_t, tu_j, before[0]), (ti_t, ti_j, before[1])):
         moved = want - old
         assert np.abs(moved).max() > 0
-        assert _rel(got - old, moved) < REL, _rel(got - old, moved)
+        assert rel_err(got - old, moved) < REL, rel_err(got - old, moved)
         # the same rows moved on both sides
         np.testing.assert_array_equal(np.abs(got - old).max(1) > 0,
                                       np.abs(moved).max(1) > 0)

@@ -169,6 +169,11 @@ ML1M = dict(n=749_724, num_users=6040, num_items=3706, factors=20,
 INSTACART = dict(n=340_000, num_users=10_000, num_items=33_362, factors=50,
                  loss="warp", max_samples=50, epochs=30, nnz_hist=340_000,
                  mean_sample_weight=1.8)
+# side features: the 21 department one-hots of the Instacart example on
+# items, a 21-column one-hot on users; the ML-1M users.dat / movies.dat
+# schemas (gender 2 + age 7 + occupation 21; 18 genres)
+INSTACART_FEATURES = dict(x_uf_any=True, num_uf=21, x_if_any=True, num_if=21)
+ML1M_FEATURES = dict(x_uf_any=True, num_uf=30, x_if_any=True, num_if=18)
 
 
 @pytest.mark.parametrize("spec", [
@@ -183,9 +188,13 @@ INSTACART = dict(n=340_000, num_users=10_000, num_items=33_362, factors=50,
     dict(ML1M, num_items=100),                       # 1 block: candidate tail
     dict(ML1M, use_fused=False, x_if_any=True, num_if=4),
     dict(ML1M, train_step="mixed"),
+    dict(INSTACART, epochs=6, **INSTACART_FEATURES),
+    dict(INSTACART, epochs=10, x_if_any=True, num_if=21),
+    dict(ML1M, **ML1M_FEATURES),
 ], ids=["ml1m-headline", "3-block-window", "bpr", "instacart",
         "instacart-6-epochs", "not-fused", "no-backend", "candidate-tail",
-        "features-not-fused", "ml1m-mixed"])
+        "features-not-fused", "ml1m-mixed", "instacart-features-6-epochs",
+        "instacart-item-features-10-epochs", "ml1m-features-chunk-tail"])
 def test_plan_equals_jax_plan(spec):
     on_gpu = spec.get("on_gpu", True)
     spec = {k: v for k, v in spec.items() if k != "on_gpu"}
@@ -211,12 +220,32 @@ def test_instacart_plan_is_the_mixed_schedule():
         on_gpu=True, **dict(ML1M, use_fused=False))).step_kind == "window"
 
 
+def test_featured_plans_are_fused():
+    """Side features stay on the fused engine: the featured Instacart plans
+    are the mixed schedule (bf16 table mode on the TPU, batch 32,768,
+    chunk 128 @ user block 1,024, 4 windows), the featured ML-1M plan the
+    main layout plus its chunk-tail."""
+    for epochs, n_main in ((6, 5), (10, 9)):
+        for feats in (INSTACART_FEATURES, dict(x_if_any=True, num_if=21)):
+            plan = tplanner.plan_fit(tplanner.FitSpec(
+                on_gpu=True, **dict(INSTACART, epochs=epochs, **feats)))
+            assert plan.fused and plan.table_mode == "bf16"
+            assert (plan.batch_size, plan.chunk, plan.user_block) == (
+                32768, 128, 1024)
+            assert (plan.n_main, plan.n_tail, plan.step_kind) == (
+                n_main, 1, "candidate")
+    plan = tplanner.plan_fit(tplanner.FitSpec(
+        on_gpu=True, **dict(ML1M, epochs=3, **ML1M_FEATURES)))
+    assert plan.fused and (plan.chunk, plan.user_block) == (256, 1024)
+    assert (plan.n_main, plan.chunk_tail, plan.tail_chunk,
+            plan.tail_user_block) == (3, 1, 128, 256)
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "item 4: Parallel"),
-    (dict(x_if_any=True, num_if=4), "B1 features"),
     (dict(num_items=9500, train_step="mixed", tail_windows=8), "tail_windows"),
     (dict(shuffle_layouts=4), "shuffle_layouts"),
-], ids=["mesh", "features", "wide-tail", "shuffle-layouts"])
+], ids=["mesh", "wide-tail", "shuffle-layouts"])
 def test_plans_outside_the_slice_raise(kw, item):
     spec = dict(ML1M, on_gpu=True)
     spec.update(kw)

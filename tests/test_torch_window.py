@@ -31,9 +31,9 @@ def test_window_fit_quality_matches_sequential_oracle(data_and_oracle):
 
 def test_featured_window_fit_quality_matches_sequential_oracle(
         data_and_oracle):
-    """Side features train on the XLA engines (the fused kernel's feature
-    variant is not ported): user and item one-hot features, the window
-    step, against the oracle fit with the same features."""
+    """Side features on the XLA engines (``use_fused=False``): user and
+    item one-hot features, the window step, against the oracle fit with
+    the same features."""
     train, test, _ = data_and_oracle
     uf, itf = make_features(np.random.default_rng(3), train)
     tm = TorchRankFM(**CFG, use_fused=False, device="cpu").fit(
