@@ -8,9 +8,12 @@ result line):
 
 1. require CUDA and print the card's name and power limit;
 2. build the CUDA kernels from ``rankfm_tpu_torch/csrc`` (nvcc, sm_90a, one
-   compiler per source, all at once);
-3. the fused chunk kernel (B1) against its plain PyTorch version on the
-   card, on the same inputs and the same Philox draws: at the ML-1M shapes
+   compiler per library, all at once);
+3. what a phase boundary of B1 costs: grid barriers inside one
+   cooperative launch against empty dependent launches; then the fused
+   chunk kernel (B1) against its plain PyTorch version on the
+   card, on the same inputs and the same Philox draws, with its roofline
+   bound and the time of each of its phases: at the ML-1M shapes
    of both fit layouts (chunk 256 @ user block 1024, chunk 128 @ user
    block 256; F 20, M 20, 1 window) and at the Instacart shape (chunk 128
    @ user block 1024; F 50, M 50, 4 windows); then its side-feature
@@ -85,6 +88,12 @@ TIE_RTOL = 1e-5            # a mismatch must be a near-tie of keys
 # scaling
 UPDATE_ATOL = 1e-5
 CARD = "?"   # nvidia-smi's name and power limit, printed beside each time
+# the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
+# tensor cores, and device memory
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+UPDATE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by")
+B1_KEYS = UPDATE_KEYS + ("chunks_per_batch",)
+B1_PHASES = ("feature_reps", "score_tiles", "select_scatter", "apply_updates")
 
 
 class SmokeFailure(Exception):
@@ -193,6 +202,31 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(ops, nbytes):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``ops`` f32 operations over ``nbytes`` of device memory traffic."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def probe_phase_boundaries(torch, fused):
+    """Grid barriers of one cooperative launch against empty dependent
+    launches, 3 per chunk at 128 and 256 chunks: what decided B1's one
+    launch per batch."""
+    for nT in (128, 256):
+        n = 3 * nT
+        fused.phase_probe(n, True)
+        fused.phase_probe(n, False)
+        sync_ms = cuda_ms(torch, lambda: fused.phase_probe(n, True), 5)
+        launch_ms = cuda_ms(torch, lambda: fused.phase_probe(n, False), 5)
+        check(sync_ms > 0 and launch_ms > 0, "phase probe measured nothing")
+        print(f"phase boundaries, {nT} chunks x 3: {n} grid barriers "
+              f"{sync_ms:.4f} ms ({1e3 * sync_ms / n:.2f} us each) vs {n} "
+              f"empty dependent launches {launch_ms:.4f} ms "
+              f"({1e3 * launch_ms / n:.2f} us each) ({CARD})", flush=True)
+
+
 def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
                  sw=None, tag="ML-1M", x_uf=None, x_if=None):
     """B1 against its plain version on ``train``'s records at each
@@ -254,6 +288,7 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
         fk = {k: v.clone() for k, v in feats.items()}
         fr = {k: v.clone() for k, v in feats.items()}
         n_rows = n_match = 0
+        plain = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         for rec_b, blk_b, ub_b, ib_b, seed in batches:
             ch_k = torch.empty(nT * chunk, dtype=torch.int32, device=dev)
             ch_r = torch.empty_like(ch_k)
@@ -261,9 +296,12 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
             ll_k = float(fused.fused_batch(*tk, rec_b, packed, blk_b, ub_b,
                                            ib_b, seed, eta, dreg, chosen=ch_k,
                                            **kw, **fk))
-            ll_r = float(fused.fused_batch_reference(
+            plain[0].record()
+            ll_r = fused.fused_batch_reference(
                 *tr, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg,
-                chosen=ch_r, keys=keys, **kw, **fr))
+                chosen=ch_r, keys=keys, **kw, **fr)
+            plain[1].record()
+            ll_r = float(ll_r)
             check(np.isfinite(ll_k) and abs(ll_k - ll_r) <= LL_RTOL * abs(ll_r),
                   f"ll kernel {ll_k} vs plain {ll_r} ({tag} chunk {chunk})")
             ck, cr = ch_k.cpu().numpy(), ch_r.cpu().numpy()
@@ -288,16 +326,38 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
         ms = cuda_ms(torch, lambda: fused.fused_batch(
             *tk, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg, **kw,
             **fk), 5)
-        plain_ms = cuda_ms(torch, lambda: fused.fused_batch_reference(
-            *tr, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg, **kw,
-            **fr), 1)
+        plain_ms = plain[0].elapsed_time(plain[1])   # the last batch compared
+        # the bound of this batch, from its shapes and the features' density
+        ops, nbytes = fused.chunk_work(
+            chunk, UB, fused.block_size(I), nw, F + 2, x_uf is not None,
+            x_if is not None, 0 if x_uf is None else x_uf.shape[1],
+            0 if x_if is None else x_if.shape[1],
+            None if x_uf is None else float((x_uf != 0).sum(1).mean()),
+            None if x_if is None else float((x_if != 0).sum(1).mean()))
+        bound_ms, bound_by = bound(nT * ops, nT * nbytes)
+        # the phases of 3 more batches, as block 0 saw them
+        phase_ns = torch.zeros(4, dtype=torch.int64, device=dev)
+        for _ in range(3):
+            fused.fused_batch(*tk, rec_b, packed, blk_b, ub_b, ib_b, seed, eta,
+                              dreg, phase_ns=phase_ns, **kw, **fk)
+        phase_us = [x / (3 * nT) / 1e3 for x in phase_ns.tolist()]
+        check(sum(phase_us) > 0, f"no phase times ({tag} chunk {chunk})")
         out[f"c{chunk}"] = {"ms": ms, "plain_ms": plain_ms,
-                            "match": n_match / n_rows, "max_abs_err": err}
+                            "match": n_match / n_rows, "max_abs_err": err,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "chunks_per_batch": nT}
         print(f"B1 vs plain, {tag} (F {F}, M {M}, {nw} window(s)), "
               f"chunk {chunk} @ user block {UB}: "
               f"{nT} chunks/batch, negatives match {n_match}/{n_rows}, "
               f"max |table diff| {err:.3g}, batch {ms:.3f} ms vs plain "
-              f"{plain_ms:.3f} ms ({CARD})", flush=True)
+              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{ops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB per chunk), "
+              f"{100 * bound_ms / ms:.2f}% reached ({CARD})", flush=True)
+        print(f"B1 phases, {tag}, chunk {chunk}: "
+              + ", ".join(f"{n} {us:.2f}" for n, us in
+                          zip(B1_PHASES, phase_us) if us > 0)
+              + f" us per chunk, barrier included; {sum(phase_us):.2f} us "
+              f"per chunk ({CARD})", flush=True)
     return out
 
 
@@ -346,7 +406,16 @@ def update_phase(torch, scatter, dev):
             plain_ms = cuda_ms(torch, lambda: scatter.table_update_reference(
                 tk, bk, idx, upd, eta, c), 20)
             if not concentrated:
+                # bytes: the updates and their rows read, each touched
+                # table row (and bias) read and written; ops: one add per
+                # update element, a multiply-add per touched element
+                live = idx[idx >= 0]
+                n_rows = int(torch.unique(live).numel())
+                cols = 50 + (bias is not None)
+                nbytes = B2 * (4 + 52 * 4) + 2 * n_rows * cols * 4
+                ops = int(live.numel()) * cols + 2 * n_rows * cols
                 rec["ms"], rec["plain_ms"] = ms, plain_ms
+                rec["bound_ms"], rec["bound_by"] = bound(ops, nbytes)
             print(f"table_update_{kernel} vs plain, {name} ({N} rows, {B2} "
                   f"updates, F 50): max |diff| {err:.3g}, {ms:.4f} ms vs "
                   f"plain {plain_ms:.4f} ms", flush=True)
@@ -434,16 +503,50 @@ def ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test):
     base.is_fit = True
     hr0 = evaluation.hit_rate(base, test, k=10)
     check(hr > hr0, f"hit rate {hr} does not beat the untrained model's {hr0}")
+    tm = time_engine_epochs(torch, model, fused, None, "ML-1M",
+                            candidate=False)
+    print("ML-1M fused epochs (main layout), device synced: "
+          f"{', '.join(f'{x:.3f}' for x in tm['fused'])} s ({CARD})",
+          flush=True)
     print(f"ML-1M serving: recommend 1000 users {rec_s:.3f} s, predict "
           f"{len(test)} pairs {pred_s:.3f} s, hit_rate@10 {hr:.4f} "
           f"(untrained {hr0:.4f}) in {hr_s:.3f} s", flush=True)
     return counts
 
 
-def time_engine_epochs(torch, model, fused, training):
-    """CUDA-synced wall time of one more fused epoch and one more candidate
-    epoch on the fitted model's tables, at the fit's plan (with the
-    model's side features, if it has any)."""
+def profile_call(torch, run):
+    """``(wall seconds, device-busy seconds, [(kernel, ms), ...])`` of one
+    ``run()`` ending in a device sync, traced with ``torch.profiler``; the
+    top four kernels by device time. Device seconds are None when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, us / 1e3))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(ms for _, ms in rows) / 1e3
+    return wall, (busy if busy > 0 else None), rows[:4]
+
+
+def time_engine_epochs(torch, model, fused, training, tag, candidate=True):
+    """CUDA-synced wall time of one more fused epoch and (``candidate``)
+    one more candidate epoch on the fitted model's tables, at the fit's
+    plan (with the model's side features, if it has any); then one more
+    fused epoch under ``torch.profiler`` for the device's busy share."""
     plan = model.last_fit_plan_
     U, I, F = len(model.user_idx), len(model.item_idx), model.factors
     dev = model.device
@@ -472,17 +575,31 @@ def time_engine_epochs(torch, model, fused, training):
                          tab_if=tif)
     packed = model._ensure_packed_hist()
     out = {}
-    for rep in range(2):
-        torch.cuda.synchronize()
-        t0 = time.time()
+
+    def fused_epoch(epoch):
         fused.fused_epoch(tab_u, tab_i, packed, layout, 0.05, model.alpha,
-                          model.seed, 100 + rep, num_users=U, num_items=I,
+                          model.seed, epoch, num_users=U, num_items=I,
                           factors=F, max_samples=plan.max_samples,
                           batch_size=plan.batch_size, chunk=plan.chunk,
                           ub=plan.user_block, n_windows=plan.n_windows,
                           beta=model.beta, **feats)
+
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fused_epoch(100 + rep)
         torch.cuda.synchronize()
         out.setdefault("fused", []).append(time.time() - t0)
+    wall, busy, top = profile_call(torch, lambda: fused_epoch(102))
+    nb, nT = cids.shape
+    print(f"{tag} fused epoch under torch.profiler: {nb} batches of {nT} "
+          f"chunks (chunk {plan.chunk}), wall {1e3 * wall:.1f} ms, device "
+          + ("time not traced" if busy is None else
+             f"busy {1e3 * busy:.1f} ms ({100 * busy / wall:.0f}%)")
+          + "; top: " + "; ".join(f"{k[:60]} {ms:.2f} ms" for k, ms in top)
+          + f" ({CARD})", flush=True)
+    if not candidate:
+        return out
     n = len(model.interactions)
     nb = -(-n // plan.xla_batch)
     n_pad = nb * plan.xla_batch
@@ -594,7 +711,7 @@ def instacart_path(torch, RankFM, evaluation, fused, scatter, training, data,
           f"hit_rate@10 {hr:.4f} (untrained {hr0:.4f}) in {hr_s:.3f} s",
           flush=True)
 
-    tm = time_engine_epochs(torch, model, fused, training)
+    tm = time_engine_epochs(torch, model, fused, training, tag)
     print(f"{tag} epochs, device synced: fused "
           f"{', '.join(f'{x:.3f}' for x in tm['fused'])} s; candidate "
           f"{', '.join(f'{x:.3f}' for x in tm['candidate'])} s "
@@ -631,6 +748,11 @@ def ml1m_features_path(torch, RankFM, fused, scatter, train, x_uf, x_if):
     lls = check_lls(model, 3, "featured ML-1M")
     for k, v in model._weights.items():
         check(np.isfinite(v).all(), f"featured ML-1M: {k} is not finite")
+    tm = time_engine_epochs(torch, model, fused, None, "featured ML-1M",
+                            candidate=False)
+    print("featured ML-1M fused epochs (main layout), device synced: "
+          f"{', '.join(f'{x:.3f}' for x in tm['fused'])} s ({CARD})",
+          flush=True)
     print(f"featured ML-1M fit: {fit_s:.2f} s for 3 epochs (plan chunk "
           f"{plan.chunk} @ ub {plan.user_block}, tail chunk {plan.tail_chunk}"
           f" @ ub {plan.tail_user_block}); lls "
@@ -694,7 +816,7 @@ def run():
     # 2. build
     t0 = time.time()
     _build.build()
-    for name in ("fused_chunk", "table_update"):
+    for name in _build.LIBS:
         _build.load(name)
     print(f"build: {time.time() - t0:.2f} s (nvcc, all sources at once: "
           f"{_build.build_info.get('seconds', 0.0):.2f} s)", flush=True)
@@ -704,8 +826,9 @@ def run():
     mask = rng.random(len(data)) < 0.8
     train, test = data[mask], data[~mask]
 
-    # 3. B1 vs plain at the ML-1M and Instacart shapes, without and with
-    # side features
+    # 3. B1: its phase boundaries, then vs plain at the ML-1M and Instacart
+    # shapes, without and with side features
+    probe_phase_boundaries(torch, fused)
     kp = kernel_phase(torch, fused, train, dev, N_USERS, N_ITEMS, 20, 20,
                       ((256, 1024), (128, 256)))
     ic_pairs, _, ic_depts = make_instacart(np.random.default_rng(SEED + 1))
@@ -753,31 +876,33 @@ def run():
 
     check("jax" not in sys.modules, "jax was imported")
     print(f"total {time.time() - t_start:.1f} s", flush=True)
+    # no `library_ms`: no one PyTorch call computes a whole fused train step,
+    # nor a scatter-sum with per-touch decay (`index_add_` has no decay)
     record = {"kernels": [
         {"name": "fused_chunk", "route": "cuda",
          "source": "rankfm_tpu_torch/csrc/fused_chunk.cu",
          "replaces": "rankfm_tpu/ops/fused.py:542",
          "launches": total["fused_chunk"],
          "max_abs_err": max(kp["max_abs_err"], kp_ic["max_abs_err"]),
-         "ms": kp["c256"]["ms"], "plain_ms": kp["c256"]["plain_ms"]},
+         **{k: kp["c256"][k] for k in B1_KEYS}, "library_ms": None},
         {"name": "fused_chunk_features", "route": "cuda",
          "source": "rankfm_tpu_torch/csrc/fused_chunk.cu",
          "replaces": "rankfm_tpu/ops/fused.py:545",
          "launches": total["fused_chunk_features"],
          "max_abs_err": max(k["max_abs_err"] for k in [kpf_ic] + kpf_ml),
-         "ms": kpf_ic["c128"]["ms"], "plain_ms": kpf_ic["c128"]["plain_ms"]},
+         **{k: kpf_ic["c128"][k] for k in B1_KEYS}, "library_ms": None},
         {"name": "table_update_sorted", "route": "cuda",
          "source": "rankfm_tpu_torch/csrc/table_update.cu",
          "replaces": "rankfm_tpu/ops/scatter.py:73",
          "launches": total["table_update_sorted"],
          "max_abs_err": up["sorted"]["max_abs_err"],
-         "ms": up["sorted"]["ms"], "plain_ms": up["sorted"]["plain_ms"]},
+         **{k: up["sorted"][k] for k in UPDATE_KEYS}, "library_ms": None},
         {"name": "table_update_dense", "route": "cuda",
          "source": "rankfm_tpu_torch/csrc/table_update.cu",
          "replaces": "rankfm_tpu/ops/scatter.py:61",
          "launches": total["table_update_dense"],
          "max_abs_err": up["dense"]["max_abs_err"],
-         "ms": up["dense"]["ms"], "plain_ms": up["dense"]["plain_ms"]},
+         **{k: up["dense"][k] for k in UPDATE_KEYS}, "library_ms": None},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,10 @@ arrays compare bit for bit:
   per chunk (`fused_epoch`).
 
 The chunk step is `fused_batch`: on CUDA tensors it launches the Hopper
-kernel of ``csrc/fused_chunk.cu``; on CPU tensors it runs the plain
-version `fused_batch_reference`. Both apply the chunks of a batch strictly
+kernel of ``csrc/fused_chunk.cu`` (one cooperative launch per batch: the
+window scoring as a tile product, the selection, the coalesced updates,
+chunk after chunk); on CPU tensors it runs the plain version
+`fused_batch_reference`. Both apply the chunks of a batch strictly
 in order with the semantics of the TPU kernel's `_sub_round`
 (`rankfm_tpu/ops/fused.py:611-971`, f32 tables, with or without side
 features): gradients read at chunk start, then the user block, the
@@ -627,11 +629,17 @@ def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
 
 def fused_batch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
                 *, factors, max_samples, ub_rows, num_items, chosen=None,
-                x_uf=None, x_if=None, tab_uf=None, tab_if=None):
+                x_uf=None, x_if=None, tab_uf=None, tab_if=None,
+                phase_ns=None):
     """One batch of the fused WARP/BPR step (see `fused_batch_reference`
     for the arguments). CUDA tensors go through the Hopper kernel; CPU
     tensors through the plain version. Updates the tables in place and
-    returns the batch log-likelihood."""
+    returns the batch log-likelihood.
+
+    A diagnostic of the kernel only: ``phase_ns``, an int64 ``[4]`` CUDA
+    tensor, gains the nanoseconds one block spent in each phase of the
+    batch, barriers included (feature representations, window scoring,
+    selection, updates)."""
     if tab_u.device.type == "cpu":
         return fused_batch_reference(
             tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
@@ -644,7 +652,82 @@ def fused_batch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
                              tab_if)
     return _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta,
                    dreg, factors, max_samples, ub_rows, num_items, chosen,
-                   feats)
+                   feats, phase_ns)
+
+
+def scratch_sizes(nT, C, UB, BLK, NW, D, P=0, Q=0, has_uf=False,
+                  has_if=False):
+    """Element counts of the kernel's scratch tensors for one batch
+    (`rfm_fused_batch` in ``csrc/fused_chunk.cu``):
+
+    * ``acc`` f32, zeroed: the per-chunk gradient accumulator of the user
+      block, the positive block and the ``NW`` window blocks;
+    * ``pw`` f32, uninitialised: one chunk's pairwise utilities
+      ``[C, NW*BLK]`` followed by its ``ut_ui [C]``;
+    * ``cnt`` int32, zeroed: each row's non-member and violator counts;
+    * ``facc`` f32, zeroed (0 without side features): the chunk's feature
+      representations (``UB`` user rows with user features, ``(1+NW)*BLK``
+      item rows with item features), the feature gradients ``[P + Q, D]``
+      and touch counts ``[P + Q]``, and one count of rows with a negative
+      per chunk.
+    """
+    P, Q = (P if has_uf else 0), (Q if has_if else 0)
+    n_rep = (UB if has_uf else 0) + ((1 + NW) * BLK if has_if else 0)
+    return {"acc": (UB + (1 + NW) * BLK) * D,
+            "pw": C * NW * BLK + C,
+            "cnt": 2 * C,
+            "facc": ((n_rep + P + Q) * D + P + Q + nT
+                     if has_uf or has_if else 0)}
+
+
+def chunk_work(C, UB, BLK, NW, D, has_uf=False, has_if=False, P=0, Q=0,
+               uf_nnz=None, if_nnz=None):
+    """``(operations, bytes)`` one chunk of the fused step has to do and
+    move, from its shapes: the numbers behind the kernel's roofline bound.
+
+    Operations (f32, one FMA = 2): the window scoring ``2*C*NW*BLK*D``,
+    twice that with item features (the product has depth ``2D``), plus
+    the feature representations at ``uf_nnz`` / ``if_nnz`` nonzero
+    features per row (default: dense, ``P`` / ``Q``). The selection
+    (compares, one Philox draw per slot at most) and the ``O(C*D)``
+    gradients are not counted.
+
+    Bytes, each input read once and each output written once: the window
+    rows, every row's history words for the windows, the records, the
+    user rows and positive rows (read and written), the chosen window
+    rows (at most one per row, written) and the ll terms; with side
+    features the feature rows read and the feature tables read and
+    written. ``UB`` only enters through the user representations."""
+    W2 = NW * BLK
+    ops = 2 * C * W2 * D * (2 if has_if else 1)
+    nbytes = (W2 * D * 4                        # window rows
+              + C * (W2 // BITS_PER_LANE) * 4   # history words
+              + C * 8                           # records
+              + 2 * 2 * C * D * 4               # user + positive rows, r/w
+              + C * D * 4                       # chosen window rows, written
+              + C * 4)                          # ll terms
+    if has_uf:
+        ops += 2 * UB * (P if uf_nnz is None else uf_nnz) * D
+        nbytes += C * P * 4 + 2 * P * D * 4
+    if has_if:
+        ops += 2 * (1 + NW) * BLK * (Q if if_nnz is None else if_nnz) * D
+        nbytes += (1 + NW) * BLK * Q * 4 + 2 * Q * D * 4
+    return ops, nbytes
+
+
+def phase_probe(n, cooperative):
+    """Enqueue what ``n`` phase boundaries cost on the current CUDA
+    stream: ``n`` grid barriers inside one cooperative launch, or ``n``
+    empty dependent launches, on the batch kernel's grid. The caller times
+    it (CUDA events)."""
+    from rankfm_tpu_torch.ops import _build
+
+    err = _build.load().rfm_phase_probe(
+        int(n), int(bool(cooperative)),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"phase probe failed: CUDA error {err} "
+                           f"({_build.error_string(err)})")
 
 
 def _check(name, t, dtype, device, ndim):
@@ -657,7 +740,7 @@ def _check(name, t, dtype, device, ndim):
 
 
 def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
-            F, M, UB, num_items, chosen, feats):
+            F, M, UB, num_items, chosen, feats, phase_ns=None):
     from rankfm_tpu_torch.ops import _build
 
     dev = tab_u.device
@@ -671,6 +754,7 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
                             ("ublk", ublk, torch.int32, 1),
                             ("iblk", iblk, torch.int32, 1),
                             ("chosen", chosen, torch.int32, 1),
+                            ("phase_ns", phase_ns, torch.int64, 1),
                             ("x_uf", x_uf, torch.float32, 2),
                             ("x_if", x_if, torch.float32, 2),
                             ("tab_uf", tab_uf, torch.float32, 2),
@@ -688,8 +772,10 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
             or iblk.shape[0] != nT
             or packed.shape[1] != item_pad(num_items) // BITS_PER_LANE
             or tab_i.shape[0] != item_pad(num_items)
-            or tab_u.shape[0] % UB or UB > UBLK
+            or tab_u.shape[0] % UB or UB > UBLK or D > LANES
+            or NW > FUSED_NBLK_CAP
             or (chosen is not None and chosen.shape != (nT * C,))
+            or (phase_ns is not None and phase_ns.shape != (4,))
             or (x_uf is not None and tab_uf.shape != (P, D))
             or (x_if is not None and tab_if.shape != (Q, D))):
         raise ValueError(
@@ -700,23 +786,23 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
                 ("x_uf", x_uf), ("tab_uf", tab_uf), ("x_if", x_if),
                 ("tab_if", tab_if)) if t is not None)
             + f"F={F} UB={UB} num_items={num_items}")
-    acc = torch.zeros((UB + (1 + NW) * BLK) * D, dtype=torch.float32,
-                      device=dev)
-    # the featured kernel's scratch (`rfm_fused_batch` in csrc/
-    # fused_chunk.cu): the chunk's feature representations, the feature
-    # gradients and touch counts, and one count of rows with a negative
-    # per chunk
-    n_rep = ((UB if x_uf is not None else 0)
-             + ((1 + NW) * BLK if x_if is not None else 0))
-    facc = (torch.zeros((n_rep + P + Q) * D + P + Q + nT,
-                        dtype=torch.float32, device=dev) if feats else None)
+    n = scratch_sizes(nT, C, UB, BLK, NW, D, P, Q, x_uf is not None,
+                      x_if is not None)
+    acc = torch.zeros(n["acc"], dtype=torch.float32, device=dev)
+    pw = torch.empty(n["pw"], dtype=torch.float32, device=dev)
+    cnt = torch.zeros(n["cnt"], dtype=torch.int32, device=dev)
+    facc = (torch.zeros(n["facc"], dtype=torch.float32, device=dev)
+            if feats else None)
     ll_rows = torch.empty(nT * C, dtype=torch.float32, device=dev)
     log_I = math.log(num_items) if num_items > 1 else 1.0
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _build.load().rfm_fused_batch(
+    # one library per instantiation of the kernel's two feature flags
+    lib = _build.load(f"fused_chunk_{int(x_uf is not None)}"
+                      f"{int(x_if is not None)}")
+    err = lib.rfm_fused_batch(
         tab_u.data_ptr(), tab_i.data_ptr(), D, F,
         rec.data_ptr(), packed.data_ptr(), packed.shape[1],
         blk.data_ptr(), ublk.data_ptr(), iblk.data_ptr(),
@@ -725,7 +811,8 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
         math.log(max(num_items - 1, 1)) / log_I,
         int(seed) & 0xFFFFFFFF, float(eta), dreg[0],
         ptr(x_uf), ptr(x_if), ptr(tab_uf), ptr(tab_if), P, Q, ptr(facc),
-        dreg[1], torch.cuda.current_stream(dev).cuda_stream)
+        dreg[1], pw.data_ptr(), cnt.data_ptr(), ptr(phase_ns),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fused chunk kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(err)})")

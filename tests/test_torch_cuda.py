@@ -35,11 +35,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, nw, rng, n_uf=0, n_if=0):
-    """A 2,048-row batch at chunk 128 @ user block 256 over 3 window
-    blocks, with ``n_uf`` user / ``n_if`` item feature columns (one-hot
-    plus a multi-hot column; none when 0)."""
-    U, I, F, C, ub = 700, 2500, 20, 128, 256
+# shapes at the edges of the kernel's score tiles (32 rows x 64 slots,
+# depth steps of 32): an odd and small row width, one above a depth step,
+# the smallest window block, a user block that is no power of two
+EDGES = {"base": {}, "F7": dict(F=7), "F50": dict(F=50),
+         "BLK128": dict(I=120), "UB608": dict(U=600, ub=None)}
+
+
+def _case(dev, nw, rng, n_uf=0, n_if=0, U=700, I=2500, F=20, ub=256):
+    """A 2,048-row batch at chunk 128 @ user block ``ub`` (256: three user
+    blocks) over the window blocks of ``I`` items (2,500: 3 blocks of
+    1,024), with ``n_uf`` user / ``n_if`` item feature columns (one-hot
+    plus a multi-hot column; none when 0). Groups are padded to whole
+    chunks, so chunks end in guard records."""
+    C = 128
     hist = rng.random((U, I)) < 0.3
     offsets = np.zeros(U + 1, np.int32)
     offsets[1:] = np.cumsum(hist.sum(1))
@@ -50,11 +59,16 @@ def _case(dev, nw, rng, n_uf=0, n_if=0):
     rec, _, cids, ublk, iblk = fused.make_records_grouped(
         u[pick], i[pick], rng.uniform(0.5, 2.0, 6000).astype(np.float32),
         U, I, 2048, C, ub=ub)
-    rec_b = torch.from_numpy(rec).to(dev).view(-1, C, 2)[
-        torch.from_numpy(cids[0]).to(dev).long()].reshape(-1, 2)
+    # the fullest batch that still holds guard records
+    n_valid = ((rec[:, 0] >> 21) & 1).reshape(-1, C).sum(1)[cids].sum(1)
     nT = cids.shape[1]
+    b = int(np.argmax(np.where(n_valid < nT * C, n_valid, -1)))
+    rec_b = torch.from_numpy(rec).to(dev).view(-1, C, 2)[
+        torch.from_numpy(cids[b]).to(dev).long()].reshape(-1, 2)
+    ublk, iblk = ublk[b:b + 1], iblk[b:b + 1]
     # windows: random blocks, a repeated block, and the positive block
-    blk = rng.integers(0, 3, (nT, nw)).astype(np.int32)
+    nblk = fused.item_pad(I) // fused.block_size(I)
+    blk = rng.integers(0, nblk, (nT, nw)).astype(np.int32)
     blk[:, 0] = iblk[0]
     if nw > 1:
         blk[::2, 1] = blk[::2, 0]
@@ -92,10 +106,14 @@ def _case(dev, nw, rng, n_uf=0, n_if=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,nw", [(1, 1), (20, 1), (20, 4)])
-def test_kernel_matches_plain_version(cuda, M, nw):
+@pytest.mark.parametrize("M,nw,edge", [
+    (1, 1, "base"), (20, 1, "base"), (20, 4, "base"), (20, 4, "F7"),
+    (1, 1, "F7"), (20, 4, "F50"), (20, 1, "BLK128"), (20, 4, "BLK128"),
+    (20, 4, "UB608"), (1, 4, "UB608")])
+def test_kernel_matches_plain_version(cuda, M, nw, edge):
     rng = np.random.default_rng(M * 10 + nw)
-    tabs, args, kw, rows = _case(cuda, nw, rng)
+    tabs, args, kw, rows = _case(cuda, nw, rng, **EDGES[edge])
+    assert not ((args[0][:, 0] >> 21) & 1).bool().all()   # guard records
     tk = [t.clone() for t in tabs]
     tr = [t.clone() for t in tabs]
     ch_k = torch.empty(rows, dtype=torch.int32, device=cuda)
@@ -115,14 +133,18 @@ def test_kernel_matches_plain_version(cuda, M, nw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_uf,n_if", [(21, 18), (30, 0), (0, 18)],
-                         ids=["both", "user-only", "item-only"])
-def test_featured_kernel_matches_plain_version(cuda, n_uf, n_if):
+@pytest.mark.parametrize("n_uf,n_if,edge", [
+    (21, 18, "base"), (30, 0, "base"), (0, 18, "base"), (21, 18, "F7"),
+    (21, 18, "F50"), (0, 18, "F50"), (21, 18, "BLK128"), (30, 0, "UB608")],
+    ids=["both", "user-only", "item-only", "both-F7", "both-F50",
+         "item-only-F50", "both-BLK128", "user-only-UB608"])
+def test_featured_kernel_matches_plain_version(cuda, n_uf, n_if, edge):
     """The featured kernel against its plain version: the row tables and
     the feature tables to 1e-4 absolute (f32 atomics in a run-dependent
     order), the ll to 1e-4 relative, 99.9% of the negatives equal."""
     rng = np.random.default_rng(n_uf + n_if)
-    (tabs, feats), args, kw, rows = _case(cuda, 4, rng, n_uf, n_if)
+    (tabs, feats), args, kw, rows = _case(cuda, 4, rng, n_uf, n_if,
+                                          **EDGES[edge])
     tk = [t.clone() for t in tabs]
     tr = [t.clone() for t in tabs]
     fk = {k: v.clone() for k, v in feats.items()}
@@ -410,11 +432,13 @@ def test_build_is_keyed_by_content(tmp_path, monkeypatch):
     nvcc.chmod(0o755)
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    n_src = len(_build.SOURCES)
+    n_lib = len(_build.LIBS)         # four of fused_chunk.cu, one more
+    assert n_lib == 5 and {src for src, _ in _build.LIBS.values()} \
+        == set(_build.SOURCES)
     first = _build.build()
     assert _build.build() == first and first.exists()
-    assert all((first / f"lib{s.stem}.so").exists() for s in _build.SOURCES)
-    assert calls.read_text().count("x") == n_src      # one nvcc per source
+    assert all((first / f"lib{name}.so").exists() for name in _build.LIBS)
+    assert calls.read_text().count("x") == n_lib      # one nvcc per library
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.build() != first
-    assert calls.read_text().count("x") == 2 * n_src
+    assert calls.read_text().count("x") == 2 * n_lib
