@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of rankfm_tpu_torch on one NVIDIA GPU, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR | --only-updates]
+
+``--only-updates`` stops after phase 4 and prints no result line.
+``--parent DIR`` also measures another tree of this repository (an
+unpacked ``git archive`` of the parent commit) on the same card, before
+and after this one, each time in a process of its own, and prints its
+table-update times and its candidate and window-step epochs beside this
+tree's.
 
 Phases (each asserts; the first failure exits non-zero without the final
 result line):
@@ -24,10 +31,21 @@ result line):
    multi-hot; values drawn from the seed): both feature sets at both fit
    layouts, user-only and item-only features at the main layout;
 4. the table-update kernels (B3 sorted, B2 dense) against
-   ``table_update_reference`` at the Instacart candidate tail's shapes
-   (items: 33,362 rows, 16,384 updates; users: 10,000 rows, 8,192
-   updates), and a concentrated case (every update on one row) through
-   both; skipped (``idx = -1``) update rows in every case;
+   ``table_update_reference`` (touched rows within the tolerance, every
+   other row bit-equal, two batches in a row on one table) at the
+   Instacart candidate tail's shapes (items: 33,362 rows, 16,384 updates;
+   users: 10,000 rows, 8,192 updates), a concentrated case (every update
+   on one row, through both; B3 must not be slower than the plain
+   version), the web-scale item table (1,000,000 rows, F 64: B3's time
+   beside its time at 33,362 rows), the ML-1M window step's shapes
+   (power-law item rows), an odd row width without bias and live updates
+   of validity 0 through both, the user table through B3 as well, and 8
+   updates (what a call costs before any work); skipped (``idx = -1``) update rows in every
+   case. Per case: ``ms`` (CUDA events over 20 back-to-back calls), the
+   host's enqueue time per call, the device time and the launches per call
+   under ``torch.profiler``, the plain version's time, and the time of
+   ``index_add_`` on the same updates (a yardstick for the sum without the
+   decay; the port never calls it on the card);
 5. the ML-1M path: ``RankFM(factors=20, loss='warp', max_samples=20,
    learning_schedule='invscaling').fit(...)`` for 6 epochs on an
    ML-1M-shaped synthetic log (80% of it), so that the main layout and the
@@ -52,7 +70,7 @@ result line):
    the main layout and 1 at the chunk-tail layout (the user features
    re-padded), all through featured B1;
 9. the window step: the ML-1M log with ``use_fused=False`` for 2 epochs,
-   both tables through B2.
+   both tables through B2; two more epochs timed with the device synced.
 
 Each path runs with the launch counts set to 0 just before it and reads
 them just after. The second-to-last line is the kernels' JSON record; the
@@ -60,6 +78,7 @@ last line is ``{"ok": true, "device": {...}}``. The script imports nothing
 of JAX.
 """
 
+import argparse
 import json
 import subprocess
 import sys
@@ -91,9 +110,38 @@ CARD = "?"   # nvidia-smi's name and power limit, printed beside each time
 # the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
 # tensor cores, and device memory
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
-UPDATE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by")
-B1_KEYS = UPDATE_KEYS + ("chunks_per_batch",)
+B1_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "chunks_per_batch")
 B1_PHASES = ("feature_reps", "score_tiles", "select_scatter", "apply_updates")
+UPDATE_TIME_KEYS = ("ms", "plain_ms", "device_ms", "enqueue_us",
+                    "index_add_ms")
+UPDATE_KEYS = UPDATE_TIME_KEYS + ("bound_ms", "bound_by")
+UPDATE_PROFILE_CALLS = 41      # the table updates of one candidate epoch
+# (name, table rows, F, updates, bias, row pattern, kernels, the kernel
+# whose main-path shape this is): the Instacart candidate tail's two tables
+# (the user table through B3 too: why the small tables keep a kernel of
+# their own), every update on one row, the web-scale item table
+# (`examples/webscale_smoke.py`: 1M items, f=64), the ML-1M window step's
+# two tables, an odd row width without bias, live updates of validity 0,
+# and 8 updates (what a call costs before any work)
+UPDATE_CASES = (
+    ("items", IC_ITEMS, 50, 16_384, True, "uniform", ("sorted",), "sorted"),
+    ("users", IC_USERS, 50, 8_192, False, "uniform", ("dense", "sorted"),
+     "dense"),
+    ("concentrated", IC_ITEMS, 50, 16_384, True, "one-row",
+     ("sorted", "dense"), None),
+    ("web-scale items", 1_000_000, 64, 16_384, True, "uniform", ("sorted",),
+     None),
+    ("ML-1M window items", N_ITEMS, 20, 16_384, True, "popular", ("dense",),
+     None),
+    ("ML-1M window users", N_USERS, 20, 8_192, False, "uniform", ("dense",),
+     None),
+    ("F 7, no bias", 20_000, 7, 4_096, False, "uniform", ("sorted", "dense"),
+     None),
+    ("validity 0", IC_ITEMS, 50, 16_384, True, "validity-0",
+     ("sorted", "dense"), None),
+    ("8 updates", IC_ITEMS, 50, 8, True, "uniform", ("dense", "sorted"),
+     None),
+)
 
 
 class SmokeFailure(Exception):
@@ -361,65 +409,171 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
     return out
 
 
-def update_phase(torch, scatter, dev):
-    """B3 and B2 against ``table_update_reference`` on the same inputs."""
+def update_inputs(torch, dev, rng, N, F, B2, with_bias, pattern):
+    """``(tab, bias, idx, upd)`` on the card. ``pattern``: 'uniform' rows,
+    'popular' (power-law 0.9 row popularity, the hot rows of an item
+    table), 'one-row' (every update on row 7) or 'validity-0' (uniform;
+    30% of the live updates, and every update of the rows divisible by 5,
+    carry validity 0). A tenth of the updates is skipped (``idx = -1``)."""
+    tab = torch.from_numpy(rng.normal(0, 0.1, (N, F)).astype(np.float32))
+    bias = (torch.from_numpy(rng.normal(0, 0.1, N).astype(np.float32)).to(dev)
+            if with_bias else None)
+    if pattern == "one-row":
+        idx = np.full(B2, 7, np.int32)
+    elif pattern == "popular":
+        pop = 1.0 / np.arange(1, N + 1) ** 0.9
+        idx = rng.choice(N, size=B2, p=pop / pop.sum()).astype(np.int32)
+    else:
+        idx = rng.integers(0, N, B2).astype(np.int32)
+    idx[rng.random(B2) < 0.1] = -1
+    upd = rng.normal(0, 0.1, (B2, F + 2)).astype(np.float32)
+    upd[:, F + 1] = (idx >= 0).astype(np.float32)
+    if pattern == "validity-0":
+        upd[(idx % 5 == 0) | (rng.random(B2) < 0.3), F + 1] = 0.0
+    return (tab.to(dev), bias, torch.from_numpy(idx).to(dev),
+            torch.from_numpy(upd).to(dev))
+
+
+def check_update(torch, scatter, launch, tab, bias, idx, upd, eta, c, tag):
+    """One kernel call against ``table_update_reference`` on copies of
+    ``tab`` / ``bias``: touched rows within `UPDATE_ATOL`, every other row
+    bit-equal. Returns ``(max |diff|, the kernel's tab, the kernel's
+    bias)``."""
+    N = tab.shape[0]
+    want = scatter.table_update_reference(
+        tab.clone(), None if bias is None else bias.clone(), idx, upd, eta, c)
+    got = launch(tab.clone(), None if bias is None else bias.clone(), idx, upd,
+                 eta, c)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max())
+              for g, w in zip(got, want) if g is not None)
+    check(err <= UPDATE_ATOL, f"{tag} differs by {err}")
+    live = idx[(idx >= 0) & (idx < N)].long()
+    untouched = torch.ones(N, dtype=torch.bool, device=tab.device)
+    untouched[live] = False
+    for g, t in zip(got, (tab, bias)):
+        if g is not None:
+            check(torch.equal(g[untouched], t[untouched]),
+                  f"{tag} wrote an untouched row")
+    if live.numel():
+        check(float((got[0] - tab).abs().max()) > 0, f"{tag} moved nothing")
+    return err, got[0], got[1]
+
+
+def time_update(torch, launch, plain, tab, bias, idx, upd, eta, c):
+    """Times of one wrapper on its own copies of the table: ``ms`` (CUDA
+    events over 20 back-to-back calls), ``plain_ms`` (the same for the
+    plain version), ``enqueue_us`` (host wall per call, no sync),
+    ``device_ms`` (device time per call under ``torch.profiler``, 41
+    calls), and per call what ran on the device: ``activities`` and
+    ``by_kernel`` ``[(name, us, launches), ...]``."""
+    tk, bk = tab.clone(), None if bias is None else bias.clone()
+
+    def call():
+        launch(tk, bk, idx, upd, eta, c)
+
+    call()
+    ms = cuda_ms(torch, call, 20)
+    plain_ms = cuda_ms(torch, lambda: plain(tk, bk, idx, upd, eta, c), 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(UPDATE_PROFILE_CALLS):
+        call()
+    enqueue_us = 1e6 * (time.perf_counter() - t0) / UPDATE_PROFILE_CALLS
+    _, busy, rows = profile_call(
+        torch, lambda: [call() for _ in range(UPDATE_PROFILE_CALLS)], top=None)
+    check(busy is not None, "torch.profiler traced no device time")
+    n = UPDATE_PROFILE_CALLS
+    return {"ms": ms, "plain_ms": plain_ms, "enqueue_us": enqueue_us,
+            "device_ms": 1e3 * busy / n,
+            "activities": sum(r[2] for r in rows) / n,
+            "by_kernel": [(k, 1e3 * t / n, cnt / n) for k, t, cnt in rows]}
+
+
+def update_phase(torch, scatter, dev, other_tree=False):
+    """B3 and B2 against ``table_update_reference`` on the same inputs at
+    every shape of `UPDATE_CASES`, then their times. Returns
+    ``{kernel: record of its main-path shape}`` and ``{"case/kernel":
+    times}``. For the kernels of another tree (``other_tree``) the
+    roofline bound (`scatter.update_work`) and the check that B3 on one
+    row is no slower than the plain version are left out."""
     rng = np.random.default_rng(SEED)
     eta, c = 0.1, scatter.decay_c(0.1, 0.01)
     out = {"sorted": {"max_abs_err": 0.0}, "dense": {"max_abs_err": 0.0}}
-    cases = (("items", IC_ITEMS, 16_384, True, False, ("sorted",)),
-             ("users", IC_USERS, 8_192, False, False, ("dense",)),
-             ("concentrated", IC_ITEMS, 16_384, True, True,
-              ("sorted", "dense")))
-    for name, N, B2, with_bias, concentrated, kernels in cases:
-        tab = torch.from_numpy(rng.normal(0, 0.1, (N, 50)).astype(
-            np.float32)).to(dev)
-        bias = (torch.from_numpy(rng.normal(0, 0.1, N).astype(
-            np.float32)).to(dev) if with_bias else None)
-        idx = (np.full(B2, 7, np.int32) if concentrated
-               else rng.integers(0, N, B2).astype(np.int32))
-        idx[rng.random(B2) < 0.1] = -1
-        upd = rng.normal(0, 0.1, (B2, 52)).astype(np.float32)
-        upd[:, 51] = (idx >= 0).astype(np.float32)
-        idx, upd = torch.from_numpy(idx).to(dev), torch.from_numpy(upd).to(dev)
-        if not concentrated:
+    times = {}
+    for name, N, F, B2, with_bias, pattern, kernels, main in UPDATE_CASES:
+        tab, bias, idx, upd = update_inputs(torch, dev, rng, N, F, B2,
+                                            with_bias, pattern)
+        if pattern != "one-row":
             check(scatter._regime(N, B2) == kernels[0],
                   f"{name}: regime {scatter._regime(N, B2)}")
-
-        def copies():
-            return tab.clone(), None if bias is None else bias.clone()
-
-        want = scatter.table_update_reference(*copies(), idx, upd, eta, c)
+        ok = (idx >= 0) & (idx < N)
+        live = idx[ok].long()
+        n_rows = int(torch.unique(live).numel())
+        # the yardstick for the sum without the decay; not a library
+        # version of the update, and the port never calls it on the card
+        acc = torch.zeros((N, F + 2), dtype=torch.float32, device=dev)
+        upd_ok = upd[ok]
+        acc.index_add_(0, live, upd_ok)
+        index_add_ms = cuda_ms(
+            torch, lambda: acc.index_add_(0, live, upd_ok), 20)
+        del acc, upd_ok
+        # a second batch for the same table: other rows, the scratch of the
+        # first call must have been left clean
+        idx2 = torch.from_numpy(np.where(
+            rng.random(B2) < 0.1, -1, rng.integers(0, N, B2)).astype(
+                np.int32)).to(dev)
+        upd2 = upd.flip(0).contiguous()
+        upd2[:, F + 1] = (idx2 >= 0).to(torch.float32)
         for kernel in kernels:
             launch = getattr(scatter, f"table_update_{kernel}")
-            got = launch(*copies(), idx, upd, eta, c)
-            torch.cuda.synchronize()
-            err = max(float((g - w).abs().max())
-                      for g, w in zip(got, want) if g is not None)
-            check(err <= UPDATE_ATOL,
-                  f"table_update_{kernel} ({name}) differs by {err}")
-            moved = float((got[0] - tab).abs().max())
-            check(moved > 0, f"table_update_{kernel} ({name}) moved nothing")
+            tag = f"table_update_{kernel} ({name})"
+            err, t1, b1 = check_update(torch, scatter, launch, tab, bias, idx,
+                                       upd, eta, c, tag)
+            err2, _, _ = check_update(torch, scatter, launch, t1, b1, idx2,
+                                      upd2, eta, c, tag + ", second batch")
+            del t1, b1
+            err = max(err, err2)
             rec = out[kernel]
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            tk, bk = copies()
-            ms = cuda_ms(torch, lambda: launch(tk, bk, idx, upd, eta, c), 20)
-            plain_ms = cuda_ms(torch, lambda: scatter.table_update_reference(
-                tk, bk, idx, upd, eta, c), 20)
-            if not concentrated:
-                # bytes: the updates and their rows read, each touched
-                # table row (and bias) read and written; ops: one add per
-                # update element, a multiply-add per touched element
-                live = idx[idx >= 0]
-                n_rows = int(torch.unique(live).numel())
-                cols = 50 + (bias is not None)
-                nbytes = B2 * (4 + 52 * 4) + 2 * n_rows * cols * 4
-                ops = int(live.numel()) * cols + 2 * n_rows * cols
-                rec["ms"], rec["plain_ms"] = ms, plain_ms
-                rec["bound_ms"], rec["bound_by"] = bound(ops, nbytes)
-            print(f"table_update_{kernel} vs plain, {name} ({N} rows, {B2} "
-                  f"updates, F 50): max |diff| {err:.3g}, {ms:.4f} ms vs "
-                  f"plain {plain_ms:.4f} ms", flush=True)
-    return out
+            tm = time_update(torch, launch, scatter.table_update_reference,
+                             tab, bias, idx, upd, eta, c)
+            tm["index_add_ms"] = index_add_ms
+            check(other_tree or round(tm["activities"]) == 1,
+                  f"{tag}: {tm['activities']} device launches per call, "
+                  f"not one: {tm['by_kernel']}")
+            times[f"{name}/{kernel}"] = tm
+            line = (f"{tag}: {N} rows, F {F}, {B2} updates ({pattern}, "
+                    f"{n_rows} rows touched): max |diff| {err:.3g} (two "
+                    f"batches in a row), {tm['ms']:.4f} ms per call (device "
+                    f"{tm['device_ms']:.4f} ms in {tm['activities']:.0f} "
+                    f"launch(es), host enqueue {tm['enqueue_us']:.1f} us) vs "
+                    f"plain {tm['plain_ms']:.4f} ms; index_add_ of the same "
+                    f"updates alone {index_add_ms:.4f} ms")
+            if not other_tree:
+                ops, nbytes = scatter.update_work(
+                    B2, F, int(live.numel()), n_rows, bias is not None)
+                bound_ms, bound_by = bound(ops, nbytes)
+                line += (f"; bound {bound_ms:.5f} ms ({bound_by}), "
+                         f"{100 * bound_ms / tm['ms']:.1f}% reached")
+                if main == kernel:
+                    rec.update({k: tm[k] for k in UPDATE_TIME_KEYS},
+                               bound_ms=bound_ms, bound_by=bound_by)
+            print(line + f" ({CARD})", flush=True)
+            print(f"  device activities per call, {tag}: " + "; ".join(
+                f"{k[:48]} {us:.2f} us x {cnt:.0f}"
+                for k, us, cnt in tm["by_kernel"]), flush=True)
+        del tab, bias, idx, upd, idx2, upd2
+    one = times["concentrated/sorted"]
+    check(other_tree or one["ms"] <= one["plain_ms"],
+          f"table_update_sorted on one row: {one['ms']} ms, slower than the "
+          f"plain version's {one['plain_ms']} ms")
+    web, items = times["web-scale items/sorted"], times["items/sorted"]
+    print(f"table_update_sorted, 1,000,000 rows vs 33,362 rows (16,384 "
+          f"updates each): {web['ms']:.4f} vs {items['ms']:.4f} ms per call, "
+          f"device {web['device_ms']:.4f} vs {items['device_ms']:.4f} ms "
+          f"({CARD})", flush=True)
+    return out, times
 
 
 def launches_of(fused, scatter):
@@ -514,11 +668,12 @@ def ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test):
     return counts
 
 
-def profile_call(torch, run):
-    """``(wall seconds, device-busy seconds, [(kernel, ms), ...])`` of one
-    ``run()`` ending in a device sync, traced with ``torch.profiler``; the
-    top four kernels by device time. Device seconds are None when the
-    trace holds no device time."""
+def profile_call(torch, run, top=4):
+    """``(wall seconds, device-busy seconds, [(name, ms, count), ...])`` of
+    one ``run()`` ending in a device sync, traced with ``torch.profiler``:
+    the ``top`` device activities (kernels, memsets, copies) by device time,
+    all of them with ``top=None``. Device seconds are None when the trace
+    holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -536,15 +691,15 @@ def profile_call(torch, run):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        rows.append((e.key, us / 1e3))
+        rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
-    busy = sum(ms for _, ms in rows) / 1e3
-    return wall, (busy if busy > 0 else None), rows[:4]
+    busy = sum(r[1] for r in rows) / 1e3
+    return wall, (busy if busy > 0 else None), rows[:top]
 
 
 def time_engine_epochs(torch, model, fused, training, tag, candidate=True):
-    """CUDA-synced wall time of one more fused epoch and (``candidate``)
-    one more candidate epoch on the fitted model's tables, at the fit's
+    """CUDA-synced wall time of two more fused epochs and (``candidate``)
+    two more candidate epochs on the fitted model's tables, at the fit's
     plan (with the model's side features, if it has any); then one more
     fused epoch under ``torch.profiler`` for the device's busy share."""
     plan = model.last_fit_plan_
@@ -596,10 +751,21 @@ def time_engine_epochs(torch, model, fused, training, tag, candidate=True):
           f"chunks (chunk {plan.chunk}), wall {1e3 * wall:.1f} ms, device "
           + ("time not traced" if busy is None else
              f"busy {1e3 * busy:.1f} ms ({100 * busy / wall:.0f}%)")
-          + "; top: " + "; ".join(f"{k[:60]} {ms:.2f} ms" for k, ms in top)
+          + "; top: " + "; ".join(f"{k[:60]} {ms:.2f} ms" for k, ms, _ in top)
           + f" ({CARD})", flush=True)
-    if not candidate:
-        return out
+    if candidate:
+        out["candidate"], out["candidate_batches"] = time_xla_epochs(
+            torch, model, training, "candidate")
+    return out
+
+
+def time_xla_epochs(torch, model, training, kind):
+    """``([seconds, seconds], batches)``: CUDA-synced wall time of two more
+    epochs of the candidate or the window step (``kind``) on copies of the
+    fitted model's tables, at the fit's plan."""
+    plan = model.last_fit_plan_
+    I, dev = len(model.item_idx), model.device
+    has_uf, has_if = bool(model.x_uf.any()), bool(model.x_if.any())
     n = len(model.interactions)
     nb = -(-n // plan.xla_batch)
     n_pad = nb * plan.xla_batch
@@ -608,24 +774,29 @@ def time_engine_epochs(torch, model, fused, training, tag, candidate=True):
     cols[0][:n] = torch.from_numpy(model.interactions[:, 0].astype(np.int64))
     cols[1][:n] = torch.from_numpy(model.interactions[:, 1].astype(np.int64))
     cols[2][:n] = torch.from_numpy(model.sample_weight)
-    step = training.make_train_step(
-        I, plan.max_samples, has_uf, has_if, sample_rounds=plan.rounds,
-        sampler=model._sampler, post_reject=plan.post_reject,
-        max_row_len=int(np.diff(model._ui_offsets).max()))
-    hist = {"offsets": model._offsets_dev, "flat": model._flat_items_dev,
-            "bitmap": model._ensure_bitmap()}
+    if kind == "candidate":
+        step = training.make_train_step(
+            I, plan.max_samples, has_uf, has_if, sample_rounds=plan.rounds,
+            sampler=model._sampler, post_reject=plan.post_reject,
+            max_row_len=int(np.diff(model._ui_offsets).max()))
+        hist = {"offsets": model._offsets_dev, "flat": model._flat_items_dev,
+                "bitmap": model._ensure_bitmap()}
+    else:
+        step = training.make_window_train_step(I, plan.max_samples, has_uf,
+                                               has_if)
+        hist = model._ensure_packed_hist()
     body = training.epoch_body(step, plan.xla_batch)
-    wc = {k: v.clone() for k, v in w.items()}
+    wc = {k: v.clone() for k, v in model._w.items()}
+    seconds = []
     for rep in range(2):
         torch.cuda.synchronize()
         t0 = time.time()
         wc, ll = body(wc, model._x_uf_dev, model._x_if_dev, hist, *cols, n,
                       0.05, model.alpha, model.beta, model.seed, 100 + rep)
         torch.cuda.synchronize()
-        out.setdefault("candidate", []).append(time.time() - t0)
-        check(np.isfinite(float(ll)), "timed candidate epoch ll")
-    out["candidate_batches"] = nb
-    return out
+        seconds.append(time.time() - t0)
+        check(np.isfinite(float(ll)), f"timed {kind} epoch ll")
+    return seconds, nb
 
 
 def instacart_data():
@@ -760,8 +931,9 @@ def ml1m_features_path(torch, RankFM, fused, scatter, train, x_uf, x_if):
     return counts
 
 
-def window_path(torch, RankFM, fused, scatter, train):
-    """The window step on the ML-1M log: both tables through B2."""
+def window_path(torch, RankFM, fused, scatter, training, train):
+    """The window step on the ML-1M log: both tables through B2. Returns
+    the launch counts and two more epochs' synced times."""
     reset_launches(torch, fused, scatter)
     t0 = time.time()
     model = RankFM(factors=20, loss="warp", max_samples=20,
@@ -780,15 +952,63 @@ def window_path(torch, RankFM, fused, scatter, train):
     print(f"window step: {fit_s:.2f} s for 2 epochs at batch "
           f"{plan.xla_batch}; lls {[round(x, 1) for x in lls]}; launches "
           f"{counts}", flush=True)
-    return counts
+    seconds, nb = time_xla_epochs(torch, model, training, "window")
+    print("window-step epochs, device synced: "
+          f"{', '.join(f'{x:.3f}' for x in seconds)} s ({nb} batches; "
+          f"{CARD})", flush=True)
+    return counts, seconds
 
 
-def run():
+def tree_times(tree):
+    """The times of another tree of this repository (``--times-of`` in a
+    process of its own): ``{"update": {"case/kernel": times}, "candidate":
+    [s, s], "window": [s, s]}``."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--times-of",
+         str(tree)], capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"--times-of {tree} failed ({proc.returncode}):\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def print_parent_table(parents, times, candidate, window):
+    """This tree's table-update and epoch times beside the parent tree's,
+    measured before and after them on the same card."""
+    for key, tm in times.items():
+        old = [p["update"].get(key) for p in parents]
+        if None in old:
+            print(f"parent vs new, {key}: the parent has no such time",
+                  flush=True)
+            continue
+        print(f"parent vs new, {key}: ms "
+              + " / ".join(f"{o['ms']:.4f}" for o in old)
+              + f" -> {tm['ms']:.4f}; device ms "
+              + " / ".join(f"{o['device_ms']:.4f}" for o in old)
+              + f" -> {tm['device_ms']:.4f}; enqueue us "
+              + " / ".join(f"{o['enqueue_us']:.1f}" for o in old)
+              + f" -> {tm['enqueue_us']:.1f}; launches per call "
+              + " / ".join(f"{o['activities']:.0f}" for o in old)
+              + f" -> {tm['activities']:.0f}"
+              + ("" if tm["ms"] <= min(o["ms"] for o in old)
+                 else "  SLOWER than the parent") + f" ({CARD})", flush=True)
+    for name, new in (("candidate", candidate), ("window", window)):
+        print(f"parent vs new, {name}-step epoch, device synced: "
+              + " / ".join(", ".join(f"{x:.3f}" for x in p[name])
+                           for p in parents)
+              + " -> " + ", ".join(f"{x:.3f}" for x in new)
+              + f" s ({CARD})", flush=True)
+
+
+def run(args):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    global ROOT
+    if args.times_of:
+        ROOT = Path(args.times_of).resolve()
     sys.path.insert(0, str(ROOT))
     try:
         import rankfm_tpu_torch
@@ -826,6 +1046,20 @@ def run():
     mask = rng.random(len(data)) < 0.8
     train, test = data[mask], data[~mask]
 
+    if args.only_updates:
+        update_phase(torch, scatter, dev)
+        return 0
+    if args.times_of:
+        # phases 4, 6 and 9 of another tree, through what both trees have
+        _, times = update_phase(torch, scatter, dev, other_tree=True)
+        _, tm = instacart_path(torch, RankFM, evaluation, fused, scatter,
+                               training, instacart_data())
+        _, win = window_path(torch, RankFM, fused, scatter, training, train)
+        print(json.dumps({"update": times, "candidate": tm["candidate"],
+                          "window": win}))
+        return 0
+    parents = [tree_times(args.parent)] if args.parent else []
+
     # 3. B1: its phase boundaries, then vs plain at the ML-1M and Instacart
     # shapes, without and with side features
     probe_phase_boundaries(torch, fused)
@@ -849,7 +1083,7 @@ def run():
                   (None, ml_if, ((256, 1024),)))]
 
     # 4. B3 / B2 vs plain
-    up = update_phase(torch, scatter, dev)
+    up, up_times = update_phase(torch, scatter, dev)
 
     # 5-9. the paths, each with its own launch counts
     ic_data = instacart_data()
@@ -869,7 +1103,12 @@ def run():
           flush=True)
     paths.append(ml1m_features_path(torch, RankFM, fused, scatter, train,
                                     ml_uf, ml_if))
-    paths.append(window_path(torch, RankFM, fused, scatter, train))
+    counts, win_s = window_path(torch, RankFM, fused, scatter, training,
+                                train)
+    paths.append(counts)
+    if args.parent:
+        parents.append(tree_times(args.parent))
+        print_parent_table(parents, up_times, tm_ic["candidate"], win_s)
     total = {k: sum(p[k] for p in paths) for k in paths[0]}
     check(all(total[k] > 0 for k in total),
           f"a kernel was never launched on the paths: {total}")
@@ -912,8 +1151,19 @@ def run():
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only-updates", action="store_true",
+                    help="phases 1, 2 and 4 only; prints no result line")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also measure the tree of this repository in DIR "
+                         "(an unpacked `git archive` of the parent commit) "
+                         "before and after this one, and print both")
+    ap.add_argument("--times-of", metavar="DIR",
+                    help="phases 4, 6 and 9 of the tree in DIR; prints their "
+                         "times as one JSON line and no result line")
+    args = ap.parse_args()
     try:
-        return run()
+        return run(args)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -51,8 +51,9 @@ _ARGTYPES = {
         "rfm_phase_probe": [_I, _I, _P],
     },
     "table_update": {
-        # tab, bias, N, F, idx_s, upd_s, B2, eta, c, stream
-        "rfm_table_update_sorted": [_P, _P, _I, _I, _P, _P, _I, _F, _F, _P],
+        # tab, bias, N, F, idx, upd, B2, cnt, claim, gfs, eta, c, stream
+        "rfm_table_update_sorted": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
+                                    _F, _F, _P],
         # tab, bias, N, F, idx, upd, B2, acc, eta, c, stream
         "rfm_table_update_dense": [_P, _P, _I, _I, _P, _P, _I, _P, _F, _F,
                                    _P],

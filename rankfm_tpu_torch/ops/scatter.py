@@ -16,14 +16,26 @@ each update's row, and rows outside ``[0, N)`` (``-1``) are skipped.
 `apply_table_update` runs the plain PyTorch version
 `table_update_reference` on CPU tensors and a Hopper kernel of
 ``csrc/table_update.cu`` on CUDA tensors, chosen as the JAX wrapper chooses
-its Pallas kernel (`_regime`): `table_update_sorted` (B3) or
-`table_update_dense` (B2). The TPU's sorted kernel reads a fixed span of
-sorted updates per table tile and falls back to the dense kernel when a
-span overflows; the card's sorted kernel walks each run of equal rows to
-its end, so that fallback has no counterpart here.
+its Pallas kernel (`_regime`): `table_update_sorted` (B3, tables of many
+more rows than updates) or `table_update_dense` (B2, small tables). On a
+CUDA tensor a wrapper launches its kernel or raises; neither takes the
+plain version, a library sort or ``index_add_``.
 
-All three update ``tab`` and ``bias`` IN PLACE (one write per touched row)
-and return them.
+Each kernel is one cooperative launch per call and allocates nothing: B3
+counts each row's touches, scales the touched rows by ``c^cnt`` and adds
+every update row into its table row in place (the update is linear in the
+row), so its work does not grow with the table and a row's updates are
+never walked one by one; B2 adds the update rows into an ``[N, F+2]``
+accumulator and rewrites the touched rows from it. The TPU's sorted kernel
+reads a fixed span of sorted updates per table tile and falls back to the
+dense kernel when a span overflows; nothing is sorted here, so that
+fallback has no counterpart. What the kernels keep between calls is
+`scratch` (sizes: `scratch_sizes`), per device and stream, and restored by
+every call. `update_work` counts the operations and bytes of one update,
+whatever implements it.
+
+All three update ``tab`` and ``bias`` IN PLACE (touched rows only) and
+return them.
 """
 
 from __future__ import annotations
@@ -53,6 +65,22 @@ def _regime(N, B2, tile=TILE):
     nT = _round_up(N, tile) // tile
     tb = _round_up(min(B2, max(1024, 4 * B2 // max(nT, 1))), 8)
     return "sorted" if nT >= 8 and tb < B2 else "dense"
+
+
+def update_work(B2, F, n_live, n_rows, with_bias):
+    """``(operations, bytes)`` one table update has to do and move, whatever
+    implements it: the numbers behind the kernels' roofline bound. ``B2``
+    update rows of ``F + 2`` floats, ``n_live`` of them aimed at a table
+    row, ``n_rows`` distinct rows touched.
+
+    Bytes, each input read once and each output written once: every update
+    row and its index, each touched table row (and its bias) read and
+    written. Operations (f32): one add per live update element, a multiply
+    and an add per touched element."""
+    cols = F + bool(with_bias)
+    nbytes = B2 * (4 + (F + 2) * 4) + 2 * n_rows * cols * 4
+    ops = n_live * cols + 2 * n_rows * cols
+    return ops, nbytes
 
 
 def decay_c(eta, reg):
@@ -109,24 +137,28 @@ def apply_table_update(tab, bias, idx, upd, eta, c):
     return table_update_dense(tab, bias, idx, upd, eta, c)
 
 
+def _ok(t, dtype, ndim, dev):
+    return (t.dtype is dtype and t.dim() == ndim and t.device == dev
+            and t.is_contiguous())
+
+
 def _check(tab, bias, idx, upd, name):
+    """Raise on what the kernels do not take."""
     dev = tab.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: needs CUDA tensors, got tab on {dev}")
-    args = [("tab", tab, torch.float32, 2), ("idx", idx, torch.int32, 1),
-            ("upd", upd, torch.float32, 2)]
-    if bias is not None:
-        args.append(("bias", bias, torch.float32, 1))
-    for arg, t, dtype, ndim in args:
-        if t.dtype != dtype or t.device != dev or t.dim() != ndim \
-                or not t.is_contiguous():
+    for arg, t, dtype, ndim in (("tab", tab, torch.float32, 2),
+                                ("idx", idx, torch.int32, 1),
+                                ("upd", upd, torch.float32, 2),
+                                ("bias", bias, torch.float32, 1)):
+        if t is not None and not _ok(t, dtype, ndim, dev):
             raise ValueError(
                 f"{name}: {arg} must be a contiguous {ndim}-d {dtype} tensor "
                 f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
     N, F = tab.shape
-    if upd.shape != (idx.shape[0], F + 2) or (
-            bias is not None and bias.shape != (N,)):
+    if upd.shape[0] != idx.shape[0] or upd.shape[1] != F + 2 or (
+            bias is not None and bias.shape[0] != N):
         raise ValueError(
             f"{name}: inconsistent shapes tab={tuple(tab.shape)} "
             f"bias={None if bias is None else tuple(bias.shape)} "
@@ -134,49 +166,109 @@ def _check(tab, bias, idx, upd, name):
             f"(upd must be [len(idx), F+2])")
 
 
-def _raise_on(err, name):
+def scratch_sizes(N, F, kind):
+    """Element counts (4-byte words) of the persistent scratch one kernel
+    keeps for an ``N``-row table, in the order it is laid out. 'sorted'
+    keeps, whatever ``F``, the touch counts ``cnt [N]`` (f32) and the row
+    claims ``claim [N]`` (int32), zeroed when allocated and left all-zero
+    by every call, and the rows' gradient factors ``gf [N]`` (f32, written
+    before they are read). 'dense' keeps the accumulator ``acc [N, F+2]``
+    (f32), zeroed when allocated and left all-zero by every call."""
+    if kind == "sorted":
+        return {"cnt": N, "claim": N, "gf": N}
+    if kind == "dense":
+        return {"acc": N * (F + 2)}
+    raise ValueError(f"scratch_sizes: kind {kind!r} is not 'sorted' or 'dense'")
+
+
+# (device index, stream, kind, words) -> zeroed int32 tensor; the newest
+# `_SCRATCH_MAX` are kept
+_scratch = {}
+_SCRATCH_MAX = 16
+
+
+def scratch(device, stream, N, kind, F=0):
+    """The persistent scratch of kernel ``kind`` for ``N``-row tables
+    (``F`` matters to 'dense' only) on ``device`` and the CUDA stream with
+    the handle ``stream``: one zeroed tensor of ``sum(scratch_sizes(N, F,
+    kind).values())`` 4-byte words, allocated at the first call and reused
+    by every later one.
+
+    The kernels restore it: each call finds its zeroed parts all-zero and
+    leaves them all-zero, so no call clears it. It is per stream: two
+    tables of equal shape share one scratch, which is safe because launches
+    on one stream run in order; launches on two streams get two."""
+    words = sum(scratch_sizes(N, F, kind).values())
+    key = (device.index, stream, kind, words)
+    buf = _scratch.get(key)
+    if buf is None:
+        while len(_scratch) >= _SCRATCH_MAX:
+            _scratch.pop(next(iter(_scratch)))
+        buf = _scratch[key] = torch.zeros(words, dtype=torch.int32,
+                                          device=device)
+    return buf
+
+
+# the current stream's handle without building a `torch.cuda.Stream`
+# (5 us a call); builds of torch without it take the public way
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _current_stream(dev):
+    if _raw_stream is not None:
+        return _raw_stream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+_fns = {}
+
+
+def _fn(kind):
+    """The C entry point of kernel ``kind``, resolved once."""
+    fn = _fns.get(kind)
+    if fn is None:
+        from rankfm_tpu_torch.ops import _build
+        fn = _fns[kind] = getattr(_build.load("table_update"),
+                                  f"rfm_table_update_{kind}")
+    return fn
+
+
+def _launch(kind, tab, bias, idx, upd, eta, c):
+    name = f"table_update_{kind}"
+    _check(tab, bias, idx, upd, name)
+    N, F = tab.shape
+    dev = tab.device
+    stream = _current_stream(dev)
+    scr = scratch(dev, stream, N, kind, F).data_ptr()
+    # 'sorted': cnt, claim, gf; 'dense': acc
+    parts = (scr, scr + 4 * N, scr + 8 * N) if kind == "sorted" else (scr,)
+    err = _fn(kind)(
+        tab.data_ptr(), None if bias is None else bias.data_ptr(), N, F,
+        idx.data_ptr(), upd.data_ptr(), idx.shape[0], *parts, float(eta),
+        float(c), stream)
     if err:
         from rankfm_tpu_torch.ops import _build
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {err} "
             f"({_build.error_string(err, 'table_update')})")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+    LAUNCHES[kind] += 1
+    return tab, bias
 
 
 def table_update_sorted(tab, bias, idx, upd, eta, c):
-    """Kernel B3 on CUDA tensors (arguments as `apply_table_update`): a
-    stable sort of ``idx``, then one warp per run of equal rows."""
-    from rankfm_tpu_torch.ops import _build
-
-    _check(tab, bias, idx, upd, "table_update_sorted")
-    idx_s, order = torch.sort(idx, stable=True)
-    upd_s = upd[order]
-    N, F = tab.shape
-    err = _build.load("table_update").rfm_table_update_sorted(
-        tab.data_ptr(), _ptr(bias), N, F, idx_s.data_ptr(), upd_s.data_ptr(),
-        idx.shape[0], float(eta), float(c),
-        torch.cuda.current_stream(tab.device).cuda_stream)
-    _raise_on(err, "table_update_sorted")
-    LAUNCHES["sorted"] += 1
-    return tab, bias
+    """Kernel B3 on CUDA tensors (arguments as `apply_table_update`), for
+    tables of many more rows than updates: one cooperative launch that
+    counts each row's touches, scales the touched rows by ``c^cnt`` and
+    adds every update row in place, scaled, with atomics. Its work does not
+    grow with the table. No sort, no copy of ``upd``, no allocation
+    (`scratch`)."""
+    return _launch("sorted", tab, bias, idx, upd, eta, c)
 
 
 def table_update_dense(tab, bias, idx, upd, eta, c):
-    """Kernel B2 on CUDA tensors (arguments as `apply_table_update`):
-    atomic adds into a zeroed ``[N, F+2]`` accumulator, then a decay pass
-    over the touched rows."""
-    from rankfm_tpu_torch.ops import _build
-
-    _check(tab, bias, idx, upd, "table_update_dense")
-    N, F = tab.shape
-    acc = torch.zeros((N, F + 2), dtype=torch.float32, device=tab.device)
-    err = _build.load("table_update").rfm_table_update_dense(
-        tab.data_ptr(), _ptr(bias), N, F, idx.data_ptr(), upd.data_ptr(),
-        idx.shape[0], acc.data_ptr(), float(eta), float(c),
-        torch.cuda.current_stream(tab.device).cuda_stream)
-    _raise_on(err, "table_update_dense")
-    LAUNCHES["dense"] += 1
-    return tab, bias
+    """Kernel B2 on CUDA tensors (arguments as `apply_table_update`), for
+    small tables: one cooperative launch that adds the update rows into a
+    persistent ``[N, F+2]`` accumulator with atomics and then, one warp per
+    table row, rewrites the touched rows and clears their accumulator
+    (`scratch`). No allocation and no clearing per call."""
+    return _launch("dense", tab, bias, idx, upd, eta, c)

@@ -11,11 +11,12 @@ draws: f32 atomics sum in a run-dependent order, so the tables agree to
 ~1e-5 absolute (checked at 1e-4), the log-likelihood to 1e-4 relative, and
 at least 99.9% of the rows choose the same negative.
 
-Table-update kernels vs `table_update_reference` on the same inputs: each
-sums a row's updates in another order than ``index_add_`` (the dense
-kernel with atomics, in a run-dependent order), so the tables agree to
-~1e-7 absolute even for a row that takes all 16,384 updates; checked at
-1e-5.
+Table-update kernels vs `table_update_reference` on the same inputs: both
+sum a row's updates with atomics, in a run-dependent order and another
+one than ``index_add_``, and the sorted kernel adds the scaled update rows
+into the scaled table row instead of scaling their sum, so the tables
+agree to ~1e-7 absolute even for a row that takes all 16,384 updates;
+checked at 1e-5. Rows that no update touches stay bit-equal.
 """
 
 import numpy as np
@@ -270,33 +271,78 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
                           max_samples=5, **kw)
 
 
-def _table_case(dev, N, B2, F, concentrated, with_bias, seed=0):
+def _table_case(dev, N, B2, F, pattern, with_bias, seed=0):
+    """``pattern``: 'uniform' rows; 'one-row' (every update on row 7);
+    'popular' (power-law rows); 'validity-0' (live updates of validity 0,
+    and rows whose updates all carry validity 0); 'skipped' (every ``idx``
+    is -1). A tenth of the updates is skipped in every pattern."""
     rng = np.random.default_rng(seed)
     tab = torch.from_numpy(rng.normal(0, 0.1, (N, F)).astype(np.float32))
     bias = torch.from_numpy(rng.normal(0, 0.1, N).astype(np.float32))
-    idx = (np.full(B2, 7, np.int32) if concentrated
-           else rng.integers(0, N, B2).astype(np.int32))
+    if pattern == "one-row":
+        idx = np.full(B2, 7, np.int32)
+    elif pattern == "popular":
+        pop = 1.0 / np.arange(1, N + 1) ** 0.9
+        idx = rng.choice(N, size=B2, p=pop / pop.sum()).astype(np.int32)
+    else:
+        idx = rng.integers(0, N, B2).astype(np.int32)
     idx[rng.random(B2) < 0.1] = -1                    # skipped rows
+    if pattern == "skipped":
+        idx[:] = -1
     upd = rng.normal(0, 0.1, (B2, F + 2)).astype(np.float32)
     upd[:, F + 1] = (idx >= 0).astype(np.float32)
+    if pattern == "validity-0":
+        upd[(idx % 5 == 0) | (rng.random(B2) < 0.3), F + 1] = 0.0
     return (tab.to(dev), bias.to(dev) if with_bias else None,
             torch.from_numpy(idx).to(dev), torch.from_numpy(upd).to(dev))
 
 
+def _assert_update_matches(tk, bk, tab, bias, idx, upd, eta, c):
+    """The kernel's ``tk`` / ``bk`` against the plain version applied to
+    ``tab`` / ``bias``: touched rows within 1e-5, every other row
+    bit-equal. Returns the plain version's result."""
+    N = tab.shape[0]
+    tr, br = scatter.table_update_reference(
+        tab.clone(), None if bias is None else bias.clone(), idx, upd, eta, c)
+    assert float((tk - tr).abs().max()) <= 1e-5
+    touched = torch.zeros(N, dtype=torch.bool, device=tab.device)
+    touched[idx[(idx >= 0) & (idx < N)].long()] = True
+    assert torch.equal(tk[~touched], tab[~touched])       # only touched rows
+    if touched.any():
+        assert float((tk[touched] - tab[touched]).abs().max()) > 0
+    if bias is not None:
+        assert float((bk - br).abs().max()) <= 1e-5
+        assert torch.equal(bk[~touched], bias[~touched])
+    return tr, br
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,B2,kernel,concentrated,with_bias", [
-    (33_362, 16_384, "sorted", False, True),   # Instacart item table
-    (10_000, 8_192, "dense", False, False),    # Instacart user table
-    (33_362, 16_384, "sorted", True, True),    # every update on one row
-    (33_362, 16_384, "dense", True, True),
+@pytest.mark.parametrize("N,B2,F,kernel,pattern,with_bias", [
+    (33_362, 16_384, 50, "sorted", "uniform", True),   # Instacart item table
+    (10_000, 8_192, 50, "dense", "uniform", False),    # Instacart user table
+    (33_362, 16_384, 50, "sorted", "one-row", True),   # all on one row
+    (33_362, 16_384, 50, "dense", "one-row", True),
+    (1_000_000, 16_384, 64, "sorted", "uniform", True),    # web-scale items
+    (3_706, 16_384, 20, "dense", "popular", True),     # ML-1M window step
+    (6_040, 8_192, 20, "dense", "uniform", False),
+    (20_000, 4_096, 7, "sorted", "uniform", False),    # odd rows: scalar adds
+    (9_000, 4_096, 7, "dense", "uniform", False),
+    (33_362, 16_384, 50, "sorted", "validity-0", True),
+    (33_362, 16_384, 50, "dense", "validity-0", True),
+    (33_362, 16_384, 50, "sorted", "skipped", True),   # every idx is -1
+    (10_000, 8_192, 50, "dense", "skipped", True),
+    (20_000, 4_099, 50, "sorted", "uniform", True),    # B2 % 8 != 0
+    (3_000, 1_001, 20, "dense", "uniform", True),
 ], ids=["items-sorted", "users-dense", "concentrated-sorted",
-        "concentrated-dense"])
-def test_table_update_kernels_match_plain_version(cuda, N, B2, kernel,
-                                                  concentrated, with_bias):
-    tab, bias, idx, upd = _table_case(cuda, N, B2, 50, concentrated,
-                                      with_bias)
+        "concentrated-dense", "webscale-sorted", "ml1m-items-dense",
+        "ml1m-users-dense", "F7-no-bias-sorted", "F7-no-bias-dense",
+        "validity0-sorted", "validity0-dense", "all-skipped-sorted",
+        "all-skipped-dense", "ragged-sorted", "ragged-dense"])
+def test_table_update_kernels_match_plain_version(cuda, N, B2, F, kernel,
+                                                  pattern, with_bias):
+    tab, bias, idx, upd = _table_case(cuda, N, B2, F, pattern, with_bias)
     eta, c = 0.1, scatter.decay_c(0.1, 0.01)
-    if not concentrated:
+    if pattern not in ("one-row", "validity-0"):    # those go through both
         assert scatter._regime(N, B2) == kernel
     tk = tab.clone()
     bk = None if bias is None else bias.clone()
@@ -304,21 +350,47 @@ def test_table_update_kernels_match_plain_version(cuda, N, B2, kernel,
     launch = getattr(scatter, f"table_update_{kernel}")
     out = launch(tk, bk, idx, upd, eta, c)
     torch.cuda.synchronize()
-    assert out[0] is tk and scatter.LAUNCHES[kernel] == before + 1
-    tr, br = scatter.table_update_reference(
-        tab.clone(), None if bias is None else bias.clone(), idx, upd, eta, c)
-    assert float((tk - tr).abs().max()) <= 1e-5
-    touched = torch.zeros(N, dtype=torch.bool, device=cuda)
-    touched[idx[idx >= 0].long()] = True
-    assert torch.equal(tk[~touched], tab[~touched])       # only touched rows
-    assert float((tk[touched] - tab[touched]).abs().min()) > 0
-    if bias is not None:
-        assert float((bk - br).abs().max()) <= 1e-5
+    assert out[0] is tk and out[1] is bk
+    assert scatter.LAUNCHES[kernel] == before + 1
+    _assert_update_matches(tk, bk, tab, bias, idx, upd, eta, c)
+    # the kernel left its scratch clean ('sorted': the counts and claims)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    words = N * (F + 2) if kernel == "dense" else 2 * N
+    assert not scatter.scratch(tab.device, stream, N, kernel, F)[:words].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,N,B2", [("sorted", 33_362, 16_384),
+                                         ("dense", 10_000, 8_192)])
+def test_table_updates_in_a_row_share_clean_scratch(cuda, kernel, N, B2):
+    """Two tables of equal shape updated in turns, twice each, with
+    different rows each time: they share one scratch (same device, stream
+    and shape), which every call must leave clean for the next."""
+    eta, c = 0.1, scatter.decay_c(0.1, 0.01)
+    launch = getattr(scatter, f"table_update_{kernel}")
+    cases = [_table_case(cuda, N, B2, 50, "uniform", True, seed=s)
+             for s in range(4)]
+    tabs = [[cases[k][0].clone(), cases[k][1].clone()] for k in (0, 1)]
+    want = [[cases[k][0].clone(), cases[k][1].clone()] for k in (0, 1)]
+    for step, (_, _, idx, upd) in enumerate(cases):
+        k = step % 2
+        launch(*tabs[k], idx, upd, eta, c)
+        before = [t.clone() for t in want[k]]
+        scatter.table_update_reference(*want[k], idx, upd, eta, c)
+        _assert_update_matches(*tabs[k], *before, idx, upd, eta, c)
+        # the chain stays on the plain version's values
+        for t, w in zip(tabs[k], want[k]):
+            assert float((t - w).abs().max()) <= 1e-5
+            t.copy_(w)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    words = N * 52 if kernel == "dense" else 2 * N
+    assert not scatter.scratch(tabs[0][0].device, stream, N, kernel,
+                               50)[:words].any()
 
 
 @pytest.mark.cuda
 def test_table_update_wrappers_reject_bad_inputs(cuda):
-    tab, bias, idx, upd = _table_case(cuda, 3000, 1024, 8, False, True)
+    tab, bias, idx, upd = _table_case(cuda, 3000, 1024, 8, "uniform", True)
     for launch in (scatter.table_update_sorted, scatter.table_update_dense):
         with pytest.raises(ValueError, match="idx"):
             launch(tab, bias, idx.long(), upd, 0.1, 0.998)
