@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of rankfm_tpu_torch on one NVIDIA GPU, end to end.
 
-    python3 chip_smoke.py [--parent DIR | --only-updates]
+    python3 chip_smoke.py [--parent DIR | --only-updates | --only-host-half
+                           | --profiler-windows N]
 
-``--only-updates`` stops after phase 4 and prints no result line.
+``--only-updates`` stops after phase 4, ``--only-host-half`` runs phase 10
+alone, ``--profiler-windows N`` counts the ``torch.profiler`` traces that
+come back without device time in N short windows with and without the
+idle margin the script leaves in each; none prints a result line.
 ``--parent DIR`` also measures another tree of this repository (an
 unpacked ``git archive`` of the parent commit) on the same card, before
 and after this one, each time in a process of its own, and prints its
@@ -15,7 +19,8 @@ result line):
 
 1. require CUDA and print the card's name and power limit;
 2. build the CUDA kernels from ``rankfm_tpu_torch/csrc`` (nvcc, sm_90a, one
-   compiler per library, all at once);
+   compiler per library, all at once), and the native ingest library from
+   ``rankfm_tpu_torch/native`` (g++; the script fails if it does not build);
 3. what a phase boundary of B1 costs: grid barriers inside one
    cooperative launch against empty dependent launches; then the fused
    chunk kernel (B1) against its plain PyTorch version on the
@@ -39,8 +44,11 @@ result line):
    version), the web-scale item table (1,000,000 rows, F 64: B3's time
    beside its time at 33,362 rows), the ML-1M window step's shapes
    (power-law item rows), an odd row width without bias and live updates
-   of validity 0 through both, the user table through B3 as well, and 8
-   updates (what a call costs before any work); skipped (``idx = -1``) update rows in every
+   of validity 0 through both, the user table through B3 as well, 8
+   updates (what a call costs before any work), and 512 updates on the
+   web-scale table through both (B2's pass over its 264 MB accumulator
+   against B3, then both at four table sizes between: what set
+   ``scatter.DENSE_ACC_MAX_BYTES``); skipped (``idx = -1``) update rows in every
    case. Per case: ``ms`` (CUDA events over 20 back-to-back calls), the
    host's enqueue time per call, the device time and the launches per call
    under ``torch.profiler``, the plain version's time, and the time of
@@ -70,7 +78,25 @@ result line):
    the main layout and 1 at the chunk-tail layout (the user features
    re-padded), all through featured B1;
 9. the window step: the ML-1M log with ``use_fused=False`` for 2 epochs,
-   both tables through B2; two more epochs timed with the device synced.
+   both tables through B2; two more epochs timed with the device synced;
+10. ingest, resume, checkpoint, baseline, at the ML-1M shape of phase 5 with
+   raw ids offset and shuffled: the native ingest library is loaded
+   (the script fails without it), and the native and numpy paths of
+   ``map_interactions`` and ``build_user_items_csr`` give equal arrays,
+   each path timed, as does ``build_index`` (numpy only in the port)
+   beside the library's ``unique_sorted``;
+   ``fit(epochs=2)`` through B1 and its ``last_fit_timing_``; ``fit_partial``
+   on the same frame reuses the history pack and both record layouts (the
+   cached tensors are the same objects), its ``last_fit_timing_`` and both
+   calls' synced wall; ``fit_partial`` on another frame rebuilds them;
+   ``save`` then ``load(device='cuda')`` serves equal ``recommend`` lists
+   (1,000 users, top 10, filtered) and equal ``predict`` scores, and
+   ``fit_partial`` after ``load`` follows the model that was never saved
+   (same epoch stream); ``ImplicitALS(factors=50)`` for 3 sweeps on the
+   Instacart-shaped log of phase 6 (finite factors, ``hit_rate@10`` above
+   the untrained factors', seconds per sweep) and at 600 x 2,500 against
+   ``device='cpu'``; ``observe.device_memory_stats`` (peak allocated bytes)
+   and ``observe.trace`` around one epoch (a trace file).
 
 Each path runs with the launch counts set to 0 just before it and reads
 them just after. The second-to-last line is the kernels' JSON record; the
@@ -80,8 +106,10 @@ of JAX.
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -116,6 +144,14 @@ UPDATE_TIME_KEYS = ("ms", "plain_ms", "device_ms", "enqueue_us",
                     "index_add_ms")
 UPDATE_KEYS = UPDATE_TIME_KEYS + ("bound_ms", "bound_by")
 UPDATE_PROFILE_CALLS = 41      # the table updates of one candidate epoch
+PROFILE_MARGIN_S = 0.005       # idle time inside a profiler window, each end
+FIT_TIMING_KEYS = ("ingest_s", "hist_pack_s", "records_s", "prep_s",
+                   "epoch0_call_s", "dispatch_s", "block_s")
+# a CUDA model after `load` against the one never saved, after the same
+# `fit_partial`: f32 atomics sum in a run-dependent order (the same limit as
+# a CUDA fit against a CPU fit in tests/test_torch_cuda.py)
+RESUME_RTOL = 1e-3
+ALS_RTOL = 1e-3            # ALS factors, card vs CPU, relative to the largest
 # (name, table rows, F, updates, bias, row pattern, kernels, the kernel
 # whose main-path shape this is): the Instacart candidate tail's two tables
 # (the user table through B3 too: why the small tables keep a kernel of
@@ -141,7 +177,12 @@ UPDATE_CASES = (
      ("sorted", "dense"), None),
     ("8 updates", IC_ITEMS, 50, 8, True, "uniform", ("dense", "sorted"),
      None),
+    ("web-scale, 512 updates", 1_000_000, 64, 512, True, "uniform",
+     ("sorted", "dense"), None),
 )
+# rows of the F 64 tables on which both kernels are timed with 512 updates:
+# where B3 overtakes B2, whose pass and accumulator grow with the table
+SWEEP_ROWS = (65_536, 131_072, 262_144, 524_288)
 
 
 class SmokeFailure(Exception):
@@ -481,7 +522,8 @@ def time_update(torch, launch, plain, tab, bias, idx, upd, eta, c):
         call()
     enqueue_us = 1e6 * (time.perf_counter() - t0) / UPDATE_PROFILE_CALLS
     _, busy, rows = profile_call(
-        torch, lambda: [call() for _ in range(UPDATE_PROFILE_CALLS)], top=None)
+        torch, lambda: [call() for _ in range(UPDATE_PROFILE_CALLS)],
+        top=None)
     check(busy is not None, "torch.profiler traced no device time")
     n = UPDATE_PROFILE_CALLS
     return {"ms": ms, "plain_ms": plain_ms, "enqueue_us": enqueue_us,
@@ -504,9 +546,9 @@ def update_phase(torch, scatter, dev, other_tree=False):
     for name, N, F, B2, with_bias, pattern, kernels, main in UPDATE_CASES:
         tab, bias, idx, upd = update_inputs(torch, dev, rng, N, F, B2,
                                             with_bias, pattern)
-        if pattern != "one-row":
-            check(scatter._regime(N, B2) == kernels[0],
-                  f"{name}: regime {scatter._regime(N, B2)}")
+        if pattern != "one-row" and not other_tree:
+            check(scatter._regime(N, B2, F) == kernels[0],
+                  f"{name}: regime {scatter._regime(N, B2, F)}")
         ok = (idx >= 0) & (idx < N)
         live = idx[ok].long()
         n_rows = int(torch.unique(live).numel())
@@ -573,7 +615,42 @@ def update_phase(torch, scatter, dev, other_tree=False):
           f"updates each): {web['ms']:.4f} vs {items['ms']:.4f} ms per call, "
           f"device {web['device_ms']:.4f} vs {items['device_ms']:.4f} ms "
           f"({CARD})", flush=True)
+    small = times["web-scale, 512 updates/dense"]
+    small3 = times["web-scale, 512 updates/sorted"]
+    print("1,000,000 rows x F 64, 512 updates: table_update_dense "
+          f"{small['ms']:.4f} ms (device {small['device_ms']:.4f} ms, scratch "
+          f"{scratch_bytes(scatter, 1_000_000, 64, 'dense')} bytes) vs "
+          f"table_update_sorted {small3['ms']:.4f} ms (device "
+          f"{small3['device_ms']:.4f} ms, scratch "
+          f"{scratch_bytes(scatter, 1_000_000, 64, 'sorted')} bytes) "
+          f"({CARD})", flush=True)
+    if not other_tree:
+        sweep_rows(torch, scatter, dev, rng, eta, c)
     return out, times
+
+
+def scratch_bytes(scatter, N, F, kind):
+    return 4 * sum(scatter.scratch_sizes(N, F, kind).values())
+
+
+def sweep_rows(torch, scatter, dev, rng, eta, c):
+    """Both kernels with 512 updates on F 64 tables of `SWEEP_ROWS` rows:
+    ``ms`` per call (CUDA events over 50 back-to-back calls) beside the
+    bytes of B2's accumulator."""
+    for N in SWEEP_ROWS:
+        tab, bias, idx, upd = update_inputs(torch, dev, rng, N, 64, 512, True,
+                                            "uniform")
+        ms = {}
+        for kernel in ("dense", "sorted"):
+            launch = getattr(scatter, f"table_update_{kernel}")
+            launch(tab, bias, idx, upd, eta, c)
+            ms[kernel] = cuda_ms(
+                torch, lambda: launch(tab, bias, idx, upd, eta, c), 50)
+        print(f"512 updates, {N} rows x F 64: table_update_dense "
+              f"{ms['dense']:.4f} ms (accumulator "
+              f"{scratch_bytes(scatter, N, 64, 'dense')} bytes) vs "
+              f"table_update_sorted {ms['sorted']:.4f} ms ({CARD})",
+              flush=True)
 
 
 def launches_of(fused, scatter):
@@ -668,22 +745,31 @@ def ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test):
     return counts
 
 
-def profile_call(torch, run, top=4):
+def profile_call(torch, run, top=4, margin=PROFILE_MARGIN_S):
     """``(wall seconds, device-busy seconds, [(name, ms, count), ...])`` of
     one ``run()`` ending in a device sync, traced with ``torch.profiler``:
     the ``top`` device activities (kernels, memsets, copies) by device time,
     all of them with ``top=None``. Device seconds are None when the trace
-    holds no device time."""
+    holds no device time.
+
+    The tracer drops every device record whose timestamp lies outside the
+    window between its start and its stop, and the device's clock can lag
+    the host's by more than the time to the first launch: a short run
+    launched right at the start now and then loses all its records. So
+    ``margin`` seconds are left idle at both ends of the window
+    (`profiler_windows` counts the empty traces with and without)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
         t0 = time.time()
         run()
         torch.cuda.synchronize()
         wall = time.time() - t0
+        time.sleep(margin)
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -695,6 +781,33 @@ def profile_call(torch, run, top=4):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e3
     return wall, (busy if busy > 0 else None), rows[:top]
+
+
+def profiler_windows(torch, scatter, dev, n):
+    """``--profiler-windows N``: ``N`` windows of `UPDATE_PROFILE_CALLS`
+    8-update calls of B3 (2-3 ms each) with no idle margin and ``N`` with
+    `PROFILE_MARGIN_S`, in turns: how many traces hold no device time.
+    Fails if one does with the margin."""
+    rng = np.random.default_rng(SEED)
+    eta, c = 0.1, scatter.decay_c(0.1, 0.01)
+    tab, bias, idx, upd = update_inputs(torch, dev, rng, IC_ITEMS, 50, 8, True,
+                                        "uniform")
+
+    def run():
+        for _ in range(UPDATE_PROFILE_CALLS):
+            scatter.table_update_sorted(tab, bias, idx, upd, eta, c)
+
+    run()
+    empty = {0.0: 0, PROFILE_MARGIN_S: 0}
+    for k in range(2 * n):
+        margin = PROFILE_MARGIN_S if k % 2 else 0.0
+        empty[margin] += profile_call(torch, run, margin=margin)[1] is None
+    print(f"torch.profiler, {n} windows of {UPDATE_PROFILE_CALLS} B3 calls "
+          f"each way: {empty[0.0]} traces without device time with no "
+          f"margin, {empty[PROFILE_MARGIN_S]} with {PROFILE_MARGIN_S} s idle "
+          f"at both ends ({CARD})", flush=True)
+    check(empty[PROFILE_MARGIN_S] == 0,
+          "torch.profiler traced no device time inside the margin")
 
 
 def time_engine_epochs(torch, model, fused, training, tag, candidate=True):
@@ -959,6 +1072,217 @@ def window_path(torch, RankFM, fused, scatter, training, train):
     return counts, seconds
 
 
+def timed(torch, fn):
+    """``(result, seconds)`` of ``fn()``, the device synced before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def same_arrays(a, b):
+    """Equal values, dtype and (for pandas objects) index."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_arrays(x, y) for x, y in zip(a, b))
+    if isinstance(a, pd.Series):
+        return isinstance(b, pd.Series) and a.dtype == b.dtype and a.equals(b)
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def ingest_paths(native, tdata, raw):
+    """`map_interactions` and `build_user_items_csr` on the frame ``raw``
+    through the native library and, with the library taken away, through
+    numpy / pandas; and `build_index` (numpy's sort, the port's only path)
+    beside the index made from the library's `unique_sorted` as the JAX
+    package makes it: equal arrays, the seconds of each."""
+    _, u2i = tdata.build_index(raw["user_id"].values)
+    _, i2i = tdata.build_index(raw["item_id"].values)
+    pairs, _ = tdata.map_interactions(raw, u2i, i2i)
+
+    def native_index(col):
+        ids = pd.Series(native.unique_sorted(col).astype(col.dtype,
+                                                         copy=False))
+        return ids, pd.Series(data=ids.index, index=ids.values)
+
+    def without_native(fn):
+        real, native.get_lib = native.get_lib, lambda: None
+        try:
+            return fn()
+        finally:
+            native.get_lib = real
+
+    calls = (
+        ("build_index (native: unique_sorted, not the port's path)",
+         lambda: native_index(raw["user_id"].values)
+         + native_index(raw["item_id"].values),
+         lambda: tdata.build_index(raw["user_id"].values)
+         + tdata.build_index(raw["item_id"].values)),
+        ("map_interactions", lambda: tdata.map_interactions(raw, u2i, i2i),
+         None),
+        ("build_user_items_csr",
+         lambda: tdata.build_user_items_csr(pairs, len(u2i)), None))
+    for name, fn, plain in calls:
+        t0 = time.time()
+        with_native = fn()
+        t_native = time.time() - t0
+        t0 = time.time()
+        without = plain() if plain else without_native(fn)
+        t_numpy = time.time() - t0
+        check(same_arrays(with_native, without),
+              f"{name}: the native and the numpy path disagree")
+        print(f"{name}, {len(raw)} rows: native {t_native:.4f} s, numpy / "
+              f"pandas {t_numpy:.4f} s, equal arrays ({CARD})", flush=True)
+
+
+def host_half_path(torch, RankFM, evaluation, fused, scatter, train, test,
+                   ic_data):
+    """Phase 10: ingest, resume, checkpoint, baseline, observe. Returns the
+    launch counts of its fits."""
+    from rankfm_tpu_torch import native
+    from rankfm_tpu_torch.baselines import ImplicitALS
+    from rankfm_tpu_torch.utils import data as tdata
+    from rankfm_tpu_torch.utils import observe
+
+    check(native.get_lib() is not None,
+          f"the native ingest library did not build: {native.build_error}")
+    # raw ids offset and shuffled, so that the id mapping does work
+    rng = np.random.default_rng(SEED + 10)
+    user_ids = 10_000_000 + 7 * rng.permutation(N_USERS)
+    item_ids = 500_000 + 3 * rng.permutation(N_ITEMS)
+    raw = pd.DataFrame({"user_id": user_ids[train[:, 0]],
+                        "item_id": item_ids[train[:, 1]]})
+    raw_test = np.stack([user_ids[test[:, 0]], item_ids[test[:, 1]]], 1)
+    ingest_paths(native, tdata, raw)
+
+    # fit, then fit_partial on the same frame and on another one
+    cfg = dict(factors=20, loss="warp", max_samples=20,
+               learning_schedule="invscaling", device="cuda")
+    reset_launches(torch, fused, scatter)
+    model, wall_fit = timed(torch, lambda: RankFM(**cfg).fit(raw, epochs=2))
+    tm_fit = dict(model.last_fit_timing_)
+    plan = model.last_fit_plan_
+    check(plan.fused and plan.chunk_tail == 1, f"phase 10 plan {plan}")
+    check(tuple(tm_fit) == FIT_TIMING_KEYS, f"last_fit_timing_ {tm_fit}")
+    check(model._ingest_hash is not None and len(model._rec_cache) == 2,
+          "the fit cached no record layouts")
+    packed, cached = model._packed_hist, dict(model._rec_cache)
+    offsets_dev = model._offsets_dev
+    _, wall_again = timed(torch, lambda: model.fit_partial(raw, epochs=2))
+    tm_again = dict(model.last_fit_timing_)
+    check(model._packed_hist is packed and model._offsets_dev is offsets_dev,
+          "fit_partial on the same frame rebuilt the history")
+    check(len(model._rec_cache) == 2 and all(
+        model._rec_cache.get(k) is v for k, v in cached.items()),
+          "fit_partial on the same frame rebuilt a record layout")
+    check(tuple(tm_again) == FIT_TIMING_KEYS, f"last_fit_timing_ {tm_again}")
+    print(f"fit(epochs=2), {len(raw)} rows: wall {wall_fit:.3f} s, "
+          f"last_fit_timing_ {tm_fit}; fit_partial on the same frame (ingest "
+          f"short cut, history pack and both record layouts reused): wall "
+          f"{wall_again:.3f} s, last_fit_timing_ {tm_again} ({CARD})",
+          flush=True)
+    other = raw.iloc[rng.permutation(len(raw))[:len(raw) * 9 // 10]]
+    _, wall_other = timed(torch, lambda: model.fit_partial(other, epochs=2))
+    check(model._packed_hist is not packed and len(model._rec_cache) == 2
+          and not set(cached) & set(model._rec_cache),
+          "fit_partial on another frame reused the caches")
+    print(f"fit_partial on another frame ({len(other)} rows; all rebuilt): "
+          f"wall {wall_other:.3f} s, last_fit_timing_ "
+          f"{model.last_fit_timing_} ({CARD})", flush=True)
+    check_lls(model, 6, "phase 10")
+
+    # save -> load on the card
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        _, save_s = timed(torch, lambda: model.save(str(tmp / "model")))
+        loaded, load_s = timed(
+            torch, lambda: RankFM.load(str(tmp / "model"), device="cuda"))
+        size = (tmp / "model.npz").stat().st_size
+        check(loaded.device.type == "cuda" and loaded._w["v_u"].is_cuda
+              and loaded._epoch_offset == 6, "load did not restore the model")
+        users = np.unique(raw_test[:, 0])[:1000]
+        recs = model.recommend(users, n_items=10, filter_previous=True)
+        check(recs.shape == (1000, 10) and not recs.isna().any().any()
+              and recs.equals(loaded.recommend(users, n_items=10,
+                                               filter_previous=True)),
+              "the loaded model recommends other lists")
+        scores = model.predict(raw_test)
+        check(np.isfinite(scores).all()
+              and np.array_equal(scores, loaded.predict(raw_test)),
+              "the loaded model predicts other scores")
+        # the same fit_partial on both, and on a copy whose epoch stream
+        # starts over
+        replay = RankFM.load(str(tmp / "model"), device="cuda")
+        replay._epoch_offset = 0
+        for m in (model, loaded, replay):
+            m.fit_partial(raw, epochs=1)
+        torch.cuda.synchronize()
+        w, wl, wr = model._weights, loaded._weights, replay._weights
+        err = max(float(np.abs(wl[k] - w[k]).max() / np.abs(w[k]).max())
+                  for k in ("w_i", "v_u", "v_i"))
+        err_replay = max(float(np.abs(wr[k] - w[k]).max() / np.abs(w[k]).max())
+                         for k in ("w_i", "v_u", "v_i"))
+        check(err <= RESUME_RTOL, f"fit_partial after load differs by {err} "
+              "(relative) from the model never saved")
+        check(err_replay > 10 * RESUME_RTOL, "fit_partial does not depend on "
+              f"the epoch offset ({err_replay})")
+        print(f"checkpoint: save {save_s:.3f} s, load {load_s:.3f} s, {size} "
+              f"bytes; equal recommend (1000 users) and predict "
+              f"({len(raw_test)} pairs); fit_partial after load vs never "
+              f"saved: max relative diff {err:.2e} (limit {RESUME_RTOL}; with "
+              f"the epoch stream started over {err_replay:.2e}) ({CARD})",
+              flush=True)
+
+        # observe: one traced epoch, then the allocator's peak
+        with observe.trace(tmp / "trace"):
+            model.fit_partial(raw, epochs=1)
+        traces = list((tmp / "trace").glob("trace_*.json"))
+        check(len(traces) == 1 and traces[0].stat().st_size > 0,
+              f"observe.trace wrote {traces}")
+        trace_bytes = traces[0].stat().st_size
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = launches_of(fused, scatter)
+    check(counts["fused_chunk"] > 0, f"phase 10 launches {counts}")
+
+    # ImplicitALS on the Instacart-shaped log, and card vs CPU
+    ic_train, ic_test = ic_data[0], ic_data[1]
+    kw = dict(factors=50, device="cuda")
+    base, setup_s = timed(torch, lambda: ImplicitALS(**kw).fit(ic_train,
+                                                               epochs=0))
+    als, fit_s = timed(torch, lambda: ImplicitALS(**kw).fit(ic_train,
+                                                            epochs=3))
+    check(np.isfinite(als.user_factors).all()
+          and np.isfinite(als.item_factors).all(), "ALS factors not finite")
+    hr, hr_s = timed(torch, lambda: evaluation.hit_rate(
+        als, ic_test, k=10, filter_previous=True))
+    hr0 = evaluation.hit_rate(base, ic_test, k=10, filter_previous=True)
+    check(hr > hr0, f"ALS hit rate {hr} does not beat the untrained {hr0}")
+    rng = np.random.default_rng(SEED + 11)
+    small = np.stack([np.repeat(np.arange(600), 25),
+                      rng.integers(0, 2500, 600 * 25)], 1)
+    card = ImplicitALS(**kw).fit(small, epochs=3)
+    cpu = ImplicitALS(factors=50, device="cpu").fit(small, epochs=3)
+    als_err = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in (
+        (card.user_factors, cpu.user_factors),
+        (card.item_factors, cpu.item_factors)))
+    check(als_err <= ALS_RTOL, f"ALS card vs CPU differ by {als_err}")
+    print(f"ImplicitALS(factors=50), {len(ic_train)} rows, "
+          f"{len(als.user_id)} x {len(als.item_id)}: set-up {setup_s:.3f} s, "
+          f"{(fit_s - setup_s) / 3:.3f} s per sweep (3 sweeps), hit_rate@10 "
+          f"{hr:.4f} (untrained {hr0:.4f}) in {hr_s:.3f} s; 600 x 2500 card "
+          f"vs CPU: max relative diff {als_err:.2e} (limit {ALS_RTOL}) "
+          f"({CARD})", flush=True)
+    stats = observe.device_memory_stats()
+    check(stats.get("allocated_bytes.all.peak", 0) > 0,
+          "device_memory_stats has no peak")
+    print(f"observe: peak allocated {stats['allocated_bytes.all.peak']} "
+          f"bytes (reserved {stats['reserved_bytes.all.peak']}); trace of "
+          f"one epoch {trace_bytes} bytes ({CARD})", flush=True)
+    return counts
+
+
 def tree_times(tree):
     """The times of another tree of this repository (``--times-of`` in a
     process of its own): ``{"update": {"case/kernel": times}, "candidate":
@@ -1040,6 +1364,14 @@ def run(args):
         _build.load(name)
     print(f"build: {time.time() - t0:.2f} s (nvcc, all sources at once: "
           f"{_build.build_info.get('seconds', 0.0):.2f} s)", flush=True)
+    if not args.times_of:
+        # the host's library too, so that no fit below is charged its g++
+        from rankfm_tpu_torch import native
+        t0 = time.time()
+        check(native.get_lib() is not None,
+              f"the native ingest library did not build: {native.build_error}")
+        print(f"build: native ingest library {time.time() - t0:.2f} s (g++)",
+              flush=True)
 
     rng = np.random.default_rng(SEED)
     data = make_synthetic(rng)
@@ -1048,6 +1380,13 @@ def run(args):
 
     if args.only_updates:
         update_phase(torch, scatter, dev)
+        return 0
+    if args.profiler_windows:
+        profiler_windows(torch, scatter, dev, args.profiler_windows)
+        return 0
+    if args.only_host_half:
+        host_half_path(torch, RankFM, evaluation, fused, scatter, train, test,
+                       instacart_data())
         return 0
     if args.times_of:
         # phases 4, 6 and 9 of another tree, through what both trees have
@@ -1085,7 +1424,7 @@ def run(args):
     # 4. B3 / B2 vs plain
     up, up_times = update_phase(torch, scatter, dev)
 
-    # 5-9. the paths, each with its own launch counts
+    # 5-10. the paths, each with its own launch counts
     ic_data = instacart_data()
     paths = [ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test)]
     counts, tm_ic = instacart_path(torch, RankFM, evaluation, fused, scatter,
@@ -1106,6 +1445,10 @@ def run(args):
     counts, win_s = window_path(torch, RankFM, fused, scatter, training,
                                 train)
     paths.append(counts)
+
+    # 10. ingest, resume, checkpoint, baseline
+    paths.append(host_half_path(torch, RankFM, evaluation, fused, scatter,
+                                train, test, ic_data))
     if args.parent:
         parents.append(tree_times(args.parent))
         print_parent_table(parents, up_times, tm_ic["candidate"], win_s)
@@ -1154,6 +1497,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only-updates", action="store_true",
                     help="phases 1, 2 and 4 only; prints no result line")
+    ap.add_argument("--only-host-half", action="store_true",
+                    help="phases 1, 2 and 10 only; prints no result line")
+    ap.add_argument("--profiler-windows", type=int, metavar="N",
+                    help="phases 1 and 2, then N short torch.profiler "
+                         "windows with and N without the idle margin; "
+                         "prints no result line")
     ap.add_argument("--parent", metavar="DIR",
                     help="also measure the tree of this repository in DIR "
                          "(an unpacked `git archive` of the parent commit) "

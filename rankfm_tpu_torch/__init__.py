@@ -9,10 +9,22 @@ evaluation, with the same public API as `rankfm_tpu`:
 
     model = RankFM(factors=20, loss='warp', device='cuda').fit(train, epochs=20)
 
-Training runs the fused WARP/BPR engine: on CUDA tensors its chunk step is
-the hand-written Hopper kernel in ``csrc/fused_chunk.cu``; on CPU tensors it
-is the kernel's plain PyTorch version. This package imports ``torch`` and
-never ``jax``.
+Training runs the engines of `rankfm_tpu` as its planner resolves them: the
+fused WARP/BPR engine, whose chunk step on CUDA tensors is the hand-written
+Hopper kernel in ``csrc/fused_chunk.cu``, and the window and candidate
+steps, whose table update is ``csrc/table_update.cu``; on CPU tensors each
+is its plain PyTorch version. Around them, the host half of `rankfm_tpu`:
+
+* ``native``: the C++ ingest for integer ids, built with g++ at first use
+  (the numpy / pandas paths give the same arrays without it);
+* ``model.last_fit_timing_``, and a ``fit_partial`` on the same interactions
+  that reuses the history and the record layouts of the call before;
+* ``model.save(path)`` / ``RankFM.load(path, device='cuda')``: the JAX
+  package's pickle-free ``.npz``, readable by either package;
+* ``baselines.ImplicitALS`` and ``utils.observe`` (``trace``,
+  ``device_memory_stats``).
+
+This package imports ``torch`` and never ``jax``.
 """
 
 from rankfm_tpu_torch.models.rankfm import RankFM

@@ -11,12 +11,18 @@ candidate tail) and the XLA window and candidate engines
 Their kernels (the fused chunk step and the table update) run on a GPU; on
 the CPU their plain versions run.
 
-Not ported yet (each raises or is absent until its ROADMAP item lands):
-checkpoints (`save`/`load`), the native C++ ingest, and mesh placement.
+Ingest goes through the C++ library of `rankfm_tpu_torch.native` for integer
+ids, a repeated ``fit_partial`` on the same interactions reuses the history
+and the record layouts of the call before, ``last_fit_timing_`` holds the
+host phases of the last call in seconds, and `save` / `load` write and read
+the JAX package's ``.npz`` checkpoint.
+
+Not ported yet (raises until its ROADMAP item lands): mesh placement.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 import time
 
@@ -24,14 +30,17 @@ import numpy as np
 import pandas as pd
 import torch
 
+from rankfm_tpu_torch import native
 from rankfm_tpu_torch.models.planner import FitSpec, plan_fit
 from rankfm_tpu_torch.ops import fused as fused_mod
 from rankfm_tpu_torch.ops import scoring, topk, training
 from rankfm_tpu_torch.ops.negatives import build_bitmap_words
-from rankfm_tpu_torch.utils.convert import weights_to_numpy
+from rankfm_tpu_torch.utils.convert import weights_from_numpy, weights_to_numpy
 from rankfm_tpu_torch.utils.data import (
+    _int64_view,
     build_index,
     build_user_items_csr,
+    csr_row_pairs,
     csr_to_dict,
     get_data,
     map_ids_float,
@@ -139,11 +148,27 @@ class _FitRun:
 
     def run(self):
         plan = self.plan
+        t0 = time.time()
         if plan.fused:
             self.run_fused()
         else:
             self.run_xla(range(plan.n_main + plan.n_tail))
+        t_disp = time.time()
+        # epoch 0's call holds whatever the first use costs (the kernels'
+        # build and load); grab it before finish() rewrites epoch_secs with
+        # the synced average
+        ep0 = self.epoch_secs[0] if self.epoch_secs else 0.0
+        # finish() reads every epoch's ll on the host, which waits for the
+        # last epoch; the explicit sync also covers what was enqueued after
+        # the last ll (the tables pulled back into the model), so block_s
+        # ends with the device idle
         self.finish()
+        if self.m.device.type == 'cuda':
+            torch.cuda.synchronize(self.m.device)
+        tm = self.m.last_fit_timing_
+        tm["epoch0_call_s"] = round(ep0, 2)
+        tm["dispatch_s"] = round(t_disp - t0, 2)   # host-side: all epochs enqueued
+        tm["block_s"] = round(time.time() - t_disp, 2)  # device drain + ll sync
 
     def run_xla(self, epochs, step_kind=None):
         """Epochs of the XLA window or candidate step (single placement),
@@ -199,16 +224,10 @@ class _FitRun:
         m, plan = self.m, self.plan
         U, num_items, F = self.U, self.I, self.F
         dev = m.device
+        tm, tm0 = m.last_fit_timing_, time.time()
         I_pad = fused_mod.item_pad(num_items)
         packed = m._ensure_packed_hist()
-
-        def layout_for(chunk, ub):
-            rec, group, cids, ublk, iblk = fused_mod.make_records_grouped(
-                m.interactions[:, 0], m.interactions[:, 1], m.sample_weight,
-                U, num_items, plan.batch_size, chunk, ub=ub)
-            return (torch.from_numpy(rec).to(dev), torch.from_numpy(group),
-                    torch.from_numpy(cids), torch.from_numpy(ublk),
-                    torch.from_numpy(iblk))
+        tm["hist_pack_s"] = round(time.time() - tm0, 2)
 
         # the tables are fresh tensors (copies): arrays handed out before
         # this fit (`_weights`, `v_i`, ...) keep their values
@@ -216,6 +235,41 @@ class _FitRun:
         U_pad = fused_mod.user_pad(U, plan.user_block)
         tab_u, tab_i = fused_mod.extend_tables(
             w["w_i"], w["v_u"], w["v_i"], U_pad, I_pad)
+
+        # grouped records are ~16 B/row; cache across fit_partial calls
+        # (repeated fits on identical data would otherwise pay the host
+        # layout + a multi-MB host->device transfer per call).
+        # sha256, not a weak checksum: a collision here silently trains
+        # every epoch with STALE per-row weights baked into the cached
+        # record layout (~10 ms for ML-1M-sized vectors, paid once)
+        sw_hash = hashlib.sha256(
+            np.ascontiguousarray(m.sample_weight).tobytes()).digest()
+
+        def layout_for(chunk, ub):
+            """``(rec on the device, group, cids, ublk, iblk on the host)``,
+            cached on the model under the ingest hash (no hash, no cache)."""
+            rec_key = (m._ingest_hash, plan.batch_size, chunk, ub, self.n,
+                       sw_hash)
+            cache = m._rec_cache if isinstance(m._rec_cache, dict) else {}
+            if rec_key in cache and m._ingest_hash is not None:
+                return cache[rec_key]
+            rec, group, cids, ublk, iblk = fused_mod.make_records_grouped(
+                m.interactions[:, 0], m.interactions[:, 1], m.sample_weight,
+                U, num_items, plan.batch_size, chunk, ub=ub)
+            layout = (torch.from_numpy(rec).to(dev), torch.from_numpy(group),
+                      torch.from_numpy(cids), torch.from_numpy(ublk),
+                      torch.from_numpy(iblk))
+            if m._ingest_hash is not None:
+                while len(cache) >= 4:  # both schedule layouts + headroom
+                    cache.pop(next(iter(cache)))
+                cache[rec_key] = layout
+                m._rec_cache = cache
+            return layout
+
+        main_layout = layout_for(plan.chunk, plan.user_block)
+        # grouped record layout: host numpy segmented shuffle + the multi-MB
+        # host->device copy
+        tm["records_s"] = round(time.time() - tm0 - tm["hist_pack_s"], 2)
         # side features: the padded feature matrices and the small packed
         # feature tables (v_uf; v_if with w_if in col F)
         x_uf = x_if = tab_uf = tab_if = None
@@ -263,9 +317,10 @@ class _FitRun:
         # layout (tail_chunk rows @ tail_user_block users), which pads the
         # user table differently — the live tables (and the padded user
         # features) are re-extended
+        tm["prep_s"] = round(time.time() - tm0, 2)  # everything pre-epoch-0
         n_ct = plan.chunk_tail
         run_epochs(range(plan.n_main - n_ct), plan.chunk, plan.user_block,
-                   layout_for(plan.chunk, plan.user_block))
+                   main_layout)
         if n_ct:
             ub_t = plan.tail_user_block
             U_pad_t = fused_mod.user_pad(U, ub_t)
@@ -408,6 +463,11 @@ class RankFM:
         self._sampler = None
         self._bitmap_dev = None
         self._packed_hist = None
+        # fit_partial on the interactions of the call before: their hash,
+        # their keep mask, and the record layouts built from them
+        self._rec_cache = None
+        self._ingest_hash = None
+        self._keep_cache = None
 
         self._user_items_view = None
         self._sim_cache = {}
@@ -416,6 +476,9 @@ class RankFM:
         # structured per-epoch training log
         self.training_log_ = []
         self.last_fit_plan_ = None
+        # wall-clock phases of the most recent fit_partial call (host-side
+        # ingest / layout / dispatch and the final device sync), in seconds
+        self.last_fit_timing_ = {}
 
         self.is_fit = False
 
@@ -425,6 +488,14 @@ class RankFM:
     def _weights(self):
         """The weights as host numpy arrays, keyed as in `rankfm_tpu`."""
         return None if self._w is None else weights_to_numpy(self._w)
+
+    @_weights.setter
+    def _weights(self, w):
+        """Takes numpy arrays or tensors; the model keeps f32 copies on its
+        device."""
+        self._w = None if w is None else weights_from_numpy(
+            {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+             for k, v in w.items()}, self.device)
 
     def _np_weight(self, name):
         return None if self._w is None else self._w[name].cpu().numpy()
@@ -491,13 +562,31 @@ class RankFM:
         assert isinstance(interactions, (np.ndarray, pd.DataFrame)), "[interactions] must be np.ndarray or pd.dataframe"
         assert interactions.shape[1] == 2, "[interactions] should be: [user_id, item_id]"
 
-        pairs, keep = map_interactions(interactions, self.user_to_index, self.item_to_index)
-        self.interactions = pairs
-        offsets, items = build_user_items_csr(pairs, len(self.user_idx))
-        if self.is_fit:
-            # fit_partial: union with previous histories
-            offsets, items = merge_user_items_csr(
-                self._ui_offsets, self._ui_items, offsets, items, len(self.user_idx))
+        # re-presenting identical interactions (warm-start loops, repeated
+        # fit_partial) skips the whole map/CSR/pack rebuild: the history
+        # union with itself is a no-op
+        h = self._hash_interactions(interactions)
+        if (self.is_fit and h is not None and h == self._ingest_hash
+                and self._keep_cache is not None):
+            keep = self._keep_cache
+            unchanged = True
+        else:
+            unchanged = False
+            prev_csr = (self._ui_offsets, self._ui_items) if self.is_fit else None
+            ingested = self._native_ingest(interactions, prev_csr)
+            if ingested is not None:
+                pairs, keep, offsets, items = ingested
+                self.interactions = pairs
+            else:
+                pairs, keep = map_interactions(interactions, self.user_to_index, self.item_to_index)
+                self.interactions = pairs
+                offsets, items = build_user_items_csr(pairs, len(self.user_idx))
+                if prev_csr is not None:
+                    # fit_partial: union with previous histories
+                    offsets, items = merge_user_items_csr(
+                        prev_csr[0], prev_csr[1], offsets, items, len(self.user_idx))
+            self._ingest_hash = h
+            self._keep_cache = keep
 
         if sample_weight is not None:
             assert isinstance(sample_weight, (np.ndarray, pd.Series)), "[sample_weight] must be np.ndarray or pd.series"
@@ -506,10 +595,13 @@ class RankFM:
             self.sample_weight = np.ascontiguousarray(get_data(sample_weight)[keep], dtype=np.float32)
         else:
             self.sample_weight = np.ones(len(self.interactions), dtype=np.float32)
+        if unchanged:
+            return
         self._ui_offsets, self._ui_items = offsets, items
         self._offsets_dev = torch.from_numpy(offsets).to(self.device)
         self._flat_items_dev = torch.from_numpy(items).to(self.device)
         self._packed_hist = None  # history changed: rebuild lazily
+        self._rec_cache = None
         self._user_items_view = None
 
         # retrieval filters seen items through the packed bitmap when it
@@ -522,6 +614,29 @@ class RankFM:
         else:
             self._sampler = 'bsearch'
         self._bitmap_dev = None
+
+    def _raw_id_columns(self, interactions):
+        """The raw user and item id columns as int64, or None unless both
+        are integer columns (`_int64_view`)."""
+        arr = get_data(interactions)
+        u_raw, i_raw = _int64_view(arr[:, 0]), _int64_view(arr[:, 1])
+        if u_raw is None or i_raw is None:
+            return None
+        return u_raw, i_raw
+
+    def _hash_interactions(self, interactions):
+        """native content hash of the raw id columns; None when unavailable"""
+        raw = self._raw_id_columns(interactions)
+        return None if raw is None else native.hash_pairs(*raw)
+
+    def _native_ingest(self, interactions, prev_csr):
+        """One-pass C++ map+filter+CSR ingest (int ids only); None -> fallback."""
+        raw = self._raw_id_columns(interactions)
+        uids = _int64_view(self.user_to_index.index.values)
+        iids = _int64_view(self.item_to_index.index.values)
+        if raw is None or uids is None or iids is None:
+            return None
+        return native.ingest(*raw, uids, iids, prev_csr)
 
     def _ensure_bitmap(self):
         """The packed membership bitmap (int32 words) on first use; a 1x1
@@ -647,6 +762,7 @@ class RankFM:
         assert isinstance(epochs, int) and epochs >= 1, "[epochs] must be a positive integer"
         assert isinstance(verbose, bool), "[verbose] must be a boolean value"
 
+        t_fp0 = time.time()
         if self.is_fit:
             self._init_interactions(interactions, sample_weight)
             self._init_features(user_features, item_features)
@@ -658,6 +774,9 @@ class RankFM:
                     "frozen across fit_partial - call fit() to rebuild them")
         else:
             self._init_all(interactions, user_features, item_features, sample_weight)
+        # ingest = id mapping + CSR history + weight init, all host work
+        # (plus the copies to the device); _FitRun fills in the other phases
+        self.last_fit_timing_ = {"ingest_s": round(time.time() - t_fp0, 2)}
 
         sw = self.sample_weight
         spec = FitSpec(
@@ -717,17 +836,7 @@ class RankFM:
 
     def _seen_pairs_for(self, user_idx_batch):
         """host-side (row, col) pairs of previously seen items for a user batch"""
-        starts = self._ui_offsets[user_idx_batch].astype(np.int64)
-        ends = self._ui_offsets[user_idx_batch + 1].astype(np.int64)
-        lens = ends - starts
-        total = int(lens.sum())
-        if total == 0:
-            return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int32)
-        rows = np.repeat(np.arange(len(user_idx_batch), dtype=np.int32), lens)
-        seg_start = np.repeat(starts, lens)
-        cum = np.repeat(np.cumsum(lens) - lens, lens)
-        cols = self._ui_items[seg_start + (np.arange(total) - cum)]
-        return rows, cols.astype(np.int32)
+        return csr_row_pairs(self._ui_offsets, self._ui_items, user_idx_batch)
 
     def recommend(self, users, n_items=10, filter_previous=False, cold_start='nan'):
         """calculate the topN items for each user
@@ -830,3 +939,27 @@ class RankFM:
         user_idx = int(self.user_to_index.loc[user_id])
         return self._similar_rows(user_idx, "v_u", "v_uf", self._x_uf_dev,
                                   self.index_to_user, n_users)
+
+    # --------------------------------
+    # checkpointing
+    # --------------------------------
+
+    def save(self, path):
+        """serialize the fitted model (weights + id maps + config) to ``path``"""
+        from rankfm_tpu_torch.utils.checkpoint import save_model
+        save_model(self, path)
+
+    @classmethod
+    def load(cls, path, allow_pickle=False, device='cuda'):
+        """restore a model saved with :meth:`save`, by this package or by
+        `rankfm_tpu`
+
+        :param allow_pickle: opt-in for old checkpoints that stored string
+            ids as pickled object arrays. Current checkpoints are
+            pickle-free and load with the safe default — never enable this
+            for an untrusted file.
+        :param device: torch device of the restored model (the file does
+            not name one)
+        """
+        from rankfm_tpu_torch.utils.checkpoint import load_model
+        return load_model(cls, path, allow_pickle=allow_pickle, device=device)

@@ -17,7 +17,9 @@ each update's row, and rows outside ``[0, N)`` (``-1``) are skipped.
 `table_update_reference` on CPU tensors and a Hopper kernel of
 ``csrc/table_update.cu`` on CUDA tensors, chosen as the JAX wrapper chooses
 its Pallas kernel (`_regime`): `table_update_sorted` (B3, tables of many
-more rows than updates) or `table_update_dense` (B2, small tables). On a
+more rows than updates) or `table_update_dense` (B2, small tables), except
+that a table too large for B2's accumulator (`DENSE_ACC_MAX_BYTES`) takes
+B3 however few its updates. On a
 CUDA tensor a wrapper launches its kernel or raises; neither takes the
 plain version, a library sort or ``index_add_``.
 
@@ -46,6 +48,13 @@ import numpy as np
 import torch
 
 TILE = 2048          # the JAX wrapper's table tile: only `_regime` reads it
+# B2's accumulator ``[N, F+2]`` f32 may hold this many bytes; a larger table
+# takes B3 whatever the JAX rule says. B2 passes over the whole accumulator,
+# B3's work does not grow with the table: with 512 updates at F 64 on an
+# NVIDIA H100 80GB HBM3 (700 W), B2 / B3 took 0.0141 / 0.0184 ms per call
+# at 17.3 MB, 0.0209 / 0.0139 at 34.6 MB, 0.0426 / 0.0135 at 69.2 MB and
+# 0.1364 / 0.0243 at 264 MB (1,000,000 rows; `chip_smoke.py`, phase 4).
+DENSE_ACC_MAX_BYTES = 32 << 20
 
 # kernel launches, keyed by 'sorted' / 'dense': one count per call of a
 # kernel wrapper that launched its kernel
@@ -56,10 +65,14 @@ def _round_up(x, m):
     return (x + m - 1) // m * m
 
 
-def _regime(N, B2, tile=TILE):
-    """'sorted' exactly when `rankfm_tpu.ops.scatter.apply_table_update`
-    takes its sorted kernel for an ``N``-row table and ``B2`` updates
+def _regime(N, B2, F, tile=TILE):
+    """The kernel for ``B2`` updates of an ``N``-row table of width ``F``:
+    'sorted' for every table whose dense accumulator would exceed
+    `DENSE_ACC_MAX_BYTES`; below that 'sorted' exactly when
+    `rankfm_tpu.ops.scatter.apply_table_update` takes its sorted kernel
     (``nT >= 8`` tiles and a span ``tb < B2``), else 'dense'."""
+    if N * (F + 2) * 4 > DENSE_ACC_MAX_BYTES:
+        return "sorted"
     B2 = _round_up(B2, 8)
     tile = min(tile, _round_up(N, 8))
     nT = _round_up(N, tile) // tile
@@ -132,7 +145,7 @@ def apply_table_update(tab, bias, idx, upd, eta, c):
     if dev.type != "cuda":
         raise ValueError(
             f"apply_table_update runs on cuda or cpu, not {dev}")
-    if _regime(tab.shape[0], idx.shape[0]) == "sorted":
+    if _regime(tab.shape[0], idx.shape[0], tab.shape[1]) == "sorted":
         return table_update_sorted(tab, bias, idx, upd, eta, c)
     return table_update_dense(tab, bias, idx, upd, eta, c)
 

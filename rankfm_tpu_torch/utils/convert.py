@@ -26,8 +26,9 @@ def weights_from_numpy(w, device):
 
 
 def weights_to_numpy(w):
-    """``{name: tensor}`` -> ``{name: f32 numpy array}``."""
-    return {k: v.detach().cpu().numpy().astype(np.float32, copy=False)
+    """``{name: tensor}`` -> ``{name: f32 numpy array}`` (copies: on the CPU
+    ``.numpy()`` alone would be a view of the live tensor)."""
+    return {k: v.detach().cpu().numpy().astype(np.float32, copy=not v.is_cuda)
             for k, v in w.items()}
 
 

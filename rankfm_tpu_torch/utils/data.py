@@ -1,10 +1,13 @@
 """Host-side data utilities: ingestion, id mapping, CSR user-history arrays.
 
 A copy of `rankfm_tpu/utils/data.py` for the PyTorch port (the port never
-imports `rankfm_tpu`, whose package import pulls in JAX). The functions are
-the same; only the integer fast paths through the C++ `native` module are
-absent until the native ingest is ported, so every call takes the numpy /
-pandas path, which gives the same arrays:
+imports `rankfm_tpu`, whose package import pulls in JAX). In
+`map_interactions`, `map_ids_float` and `build_user_items_csr` integer id
+columns (`_int64_view`) go through the C++ library of
+`rankfm_tpu_torch.native` when it could be built; every other column, and
+every call without a toolchain, takes the numpy / pandas path, which gives
+the same arrays, dtype included. `build_index` is numpy's alone: its
+vectorised sort is the faster one (see there).
 
 * interactions become a dense ``int32 [N, 2]`` array of internal indices,
 * per-user item histories become a CSR pair ``(offsets [U+1], flat_items [nnz])``
@@ -15,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import pandas as pd
+
+from rankfm_tpu_torch import native
 
 
 def get_data(obj):
@@ -46,7 +51,13 @@ def _int64_view(values):
 
 def build_index(values):
     """Sorted-unique id array and an id -> zero-based-index pandas Series:
-    ids are sorted ascending and assigned dense int indices."""
+    ids are sorted ascending and assigned dense int indices.
+
+    Always `np.unique`, also for integer ids: the JAX package sends those
+    through `rfm_unique_sorted`, which sorts the whole column and took
+    0.038-0.069 s for the two columns of 599,924 rows where `np.unique`
+    took 0.008-0.013 s (NVIDIA H100 80GB HBM3 host, `chip_smoke.py` phase
+    10). Both give equal arrays (`tests/test_torch_native.py`)."""
     ids = pd.Series(np.sort(np.unique(values)))
     to_index = pd.Series(data=ids.index, index=ids.values)
     return ids, to_index
@@ -61,6 +72,16 @@ def map_interactions(interactions, user_to_index, item_to_index):
     marks the surviving input rows (used to subset ``sample_weight``).
     """
     arr = get_data(interactions)
+    u_raw, i_raw = _int64_view(arr[:, 0]), _int64_view(arr[:, 1])
+    uid_int = _int64_view(user_to_index.index.values)
+    iid_int = _int64_view(item_to_index.index.values)
+    if u_raw is not None and i_raw is not None and uid_int is not None and iid_int is not None:
+        u_idx = native.map_ids(u_raw, uid_int)
+        i_idx = native.map_ids(i_raw, iid_int)
+        if u_idx is not None and i_idx is not None:
+            keep = (u_idx >= 0) & (i_idx >= 0)
+            pairs = np.stack([u_idx[keep], i_idx[keep]], axis=1).astype(np.int32)
+            return np.ascontiguousarray(pairs), keep
     u = pd.Series(arr[:, 0]).map(user_to_index).values.astype(np.float64)
     i = pd.Series(arr[:, 1]).map(item_to_index).values.astype(np.float64)
     keep = ~(np.isnan(u) | np.isnan(i))
@@ -69,7 +90,16 @@ def map_interactions(interactions, user_to_index, item_to_index):
 
 
 def map_ids_float(values, to_index):
-    """Map raw ids to float64 internal indices with NaN for unknowns."""
+    """Map raw ids to float64 internal indices with NaN for unknowns,
+    through the native lookup for integer id columns."""
+    iv = _int64_view(values)
+    ti = _int64_view(to_index.index.values)
+    if iv is not None and ti is not None:
+        idx = native.map_ids(iv, ti)
+        if idx is not None:
+            out = idx.astype(np.float64)
+            out[idx < 0] = np.nan
+            return out
     return pd.Series(np.asarray(values)).map(to_index).values.astype(np.float64)
 
 
@@ -109,6 +139,9 @@ def build_user_items_csr(pairs, num_users):
     """
     if len(pairs) == 0:
         return np.zeros(num_users + 1, dtype=np.int32), np.zeros(0, dtype=np.int32)
+    res = native.build_csr(pairs[:, 0], pairs[:, 1], num_users)
+    if res is not None:
+        return res
     uniq = np.unique(pairs, axis=0)  # sorts by (u, i) and dedups
     users = uniq[:, 0]
     items = uniq[:, 1]
@@ -130,6 +163,20 @@ def merge_user_items_csr(offsets_a, items_a, offsets_b, items_b, num_users):
     if not pairs:
         return np.zeros(num_users + 1, dtype=np.int32), np.zeros(0, dtype=np.int32)
     return build_user_items_csr(np.concatenate(pairs, axis=0), num_users)
+
+
+def csr_row_pairs(offsets, flat_items, rows):
+    """``(row position, item)`` of every history entry of the CSR rows
+    ``rows``: int32 arrays, the position counting within ``rows``."""
+    starts = offsets[rows].astype(np.int64)
+    lens = offsets[rows + 1].astype(np.int64) - starts
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int32)
+    pos = np.repeat(np.arange(len(rows), dtype=np.int32), lens)
+    cum = np.repeat(np.cumsum(lens) - lens, lens)
+    cols = flat_items[np.repeat(starts, lens) + (np.arange(total) - cum)]
+    return pos, cols.astype(np.int32)
 
 
 def csr_to_dict(offsets, flat_items):

@@ -1,6 +1,7 @@
 """The kernels on the card (the fused chunk step, with and without side
-features, the sorted and dense table updates), and the build and dispatch
-rules around them.
+features, the sorted and dense table updates), the build and dispatch
+rules around them, and the host half on a CUDA model (checkpoints between
+card and CPU, the record cache, the ALS baseline).
 
 Tests marked ``cuda`` need an NVIDIA GPU with nvcc and skip without one;
 run them there with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -343,7 +344,7 @@ def test_table_update_kernels_match_plain_version(cuda, N, B2, F, kernel,
     tab, bias, idx, upd = _table_case(cuda, N, B2, F, pattern, with_bias)
     eta, c = 0.1, scatter.decay_c(0.1, 0.01)
     if pattern not in ("one-row", "validity-0"):    # those go through both
-        assert scatter._regime(N, B2) == kernel
+        assert scatter._regime(N, B2, F) == kernel
     tk = tab.clone()
     bk = None if bias is None else bias.clone()
     before = scatter.LAUNCHES[kernel]
@@ -467,6 +468,103 @@ def test_gpu_window_fit_matches_cpu_window_fit(cuda):
             "precision": 0.03, "recall": 0.03}
     for m, tol in gate.items():
         assert abs(got[m] - want[m]) <= tol, (m, got, want)
+
+
+@pytest.mark.cuda
+def test_large_table_with_few_updates_takes_the_sorted_kernel(cuda):
+    """512 updates on 1,000,000 x F 64: the dense accumulator would hold
+    264 MB, over `scatter.DENSE_ACC_MAX_BYTES`, so the dispatch takes B3."""
+    tab, bias, idx, upd = _table_case(cuda, 1_000_000, 512, 64, "uniform",
+                                      True)
+    eta, c = 0.1, scatter.decay_c(0.1, 0.01)
+    want = scatter.table_update_reference(tab.clone(), bias.clone(), idx, upd,
+                                          eta, c)
+    before = dict(scatter.LAUNCHES)
+    got = scatter.apply_table_update(tab, bias, idx, upd, eta, c)
+    assert scatter.LAUNCHES["sorted"] == before.get("sorted", 0) + 1
+    assert scatter.LAUNCHES["dense"] == before.get("dense", 0)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """Saved on the card, loaded on the CPU and back: equal lists, scores
+    within 1e-5, and `fit_partial` after `load` on the card follows the
+    model that was never saved (same epoch stream; f32 summation order
+    differs from run to run)."""
+    from rankfm_tpu_torch import RankFM
+
+    rng = np.random.default_rng(3)
+    users = np.repeat(np.arange(500), 30)
+    train = np.stack([1000 + users, rng.integers(0, 2300, len(users))], 1)
+    cfg = dict(factors=12, loss="warp", max_samples=10,
+               learning_schedule="invscaling")
+    mg = RankFM(**cfg, device="cuda").fit(train, epochs=2)
+    path = str(tmp_path / "card")
+    mg.save(path)
+    mc = RankFM.load(path, device="cpu")
+    assert mc.device.type == "cpu" and mc._w["v_u"].device.type == "cpu"
+    mc.save(str(tmp_path / "cpu"))
+    mb = RankFM.load(str(tmp_path / "cpu"))           # the default: the card
+    assert mb.device.type == "cuda" and mb._offsets_dev.is_cuda
+    assert mb._rec_cache is None                      # no tensor carried over
+    ids = np.unique(train[:, 0])[:200]
+    for other in (mc, mb):
+        for k, v in mg._weights.items():
+            np.testing.assert_array_equal(v, other._weights[k])
+        np.testing.assert_allclose(other.predict(train[:500]),
+                                   mg.predict(train[:500]), atol=1e-5)
+    assert mb.recommend(ids, 10, filter_previous=True).equals(
+        mg.recommend(ids, 10, filter_previous=True))
+    for m in (mg, mb):
+        m.fit_partial(train, epochs=2)
+    assert mg._epoch_offset == mb._epoch_offset == 4
+    for k in ("w_i", "v_u", "v_i"):
+        want = mg._weights[k]
+        assert np.abs(mb._weights[k] - want).max() <= 1e-3 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_record_cache_on_the_card(cuda):
+    """A second `fit_partial` on the same frame reuses the history pack and
+    the record layouts on the card; a new `sample_weight` builds new
+    layouts only; `last_fit_timing_` has the fused keys."""
+    from rankfm_tpu_torch import RankFM
+
+    rng = np.random.default_rng(3)
+    users = np.repeat(np.arange(500), 30)
+    train = np.stack([1000 + users, rng.integers(0, 2300, len(users))], 1)
+    m = RankFM(factors=12, loss="warp", max_samples=10).fit(train, epochs=3)
+    assert list(m.last_fit_timing_) == [
+        "ingest_s", "hist_pack_s", "records_s", "prep_s", "epoch0_call_s",
+        "dispatch_s", "block_s"]
+    assert m.last_fit_plan_.chunk_tail == 1 and len(m._rec_cache) == 2
+    packed, cached = m._packed_hist, dict(m._rec_cache)
+    assert all(v[0].is_cuda for v in cached.values())
+    m.fit_partial(train, epochs=3)
+    assert m._packed_hist is packed
+    assert all(m._rec_cache[k] is v for k, v in cached.items())
+    m.fit_partial(train, sample_weight=np.full(len(train), 2.0, np.float32),
+                  epochs=3)
+    assert m._packed_hist is packed and len(m._rec_cache) == 4
+    assert all(np.isfinite(v).all() for v in m._weights.values())
+
+
+@pytest.mark.cuda
+def test_als_on_the_card_matches_the_cpu(cuda):
+    from rankfm_tpu_torch.baselines import ImplicitALS
+
+    rng = np.random.default_rng(5)
+    users = np.repeat(np.arange(600), 25)
+    train = np.stack([users, rng.integers(0, 2500, len(users))], 1)
+    kw = dict(factors=32, regularization=0.05, alpha=20.0, iterations=3)
+    card = ImplicitALS(**kw).fit(train)               # 'cuda' by default
+    cpu = ImplicitALS(**kw, device="cpu").fit(train)
+    for a, b in ((card.user_factors, cpu.user_factors),
+                 (card.item_factors, cpu.item_factors)):
+        assert np.isfinite(a).all()
+        assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
 
 
 def test_table_update_refuses_other_devices():

@@ -143,7 +143,7 @@ def test_reference_matches_pallas_kernels(pallas_interpret, N, B2,
                                           concentrated, with_bias, atol):
     tab, bias, idx, upd = _case(N, B2, 50, concentrated)
     kind = "dense" if N == 3000 else "sorted"
-    assert tscatter._regime(N, B2) == kind
+    assert tscatter._regime(N, B2, 50) == kind
     c = jnp.maximum(jnp.float32(1) - jnp.float32(ETA) * 2 * jnp.float32(REG),
                     1e-8)
     tab_j, bias_j = jscatter.apply_table_update(
@@ -173,7 +173,8 @@ def test_reference_matches_jax_f32_path(N, B2, concentrated):
 def test_regime_equals_the_jax_rule(monkeypatch):
     """The JAX wrapper builds its sorted kernel exactly when it takes the
     sorted regime (the `lax.cond` fallback traces both); record which
-    kernels a trace builds, for a grid of table and update counts."""
+    kernels a trace builds, for a grid of table and update counts whose
+    dense accumulators are under the port's cap."""
     built = []
 
     def fake_dense(n_pad, F, B2, tile):
@@ -200,9 +201,32 @@ def test_regime_equals_the_jax_rule(monkeypatch):
                 jax.ShapeDtypeStruct((B2,), jnp.int32),
                 jax.ShapeDtypeStruct((B2, F + 2), jnp.float32))
             want = "sorted" if "sorted" in built else "dense"
-            assert tscatter._regime(N, B2) == want, (N, B2, built)
+            for width in (F, 64, 76):
+                assert N * (width + 2) * 4 <= tscatter.DENSE_ACC_MAX_BYTES
+                assert tscatter._regime(N, B2, width) == want, (N, B2, width)
             seen.add(want)
     assert seen == {"sorted", "dense"}
+
+
+def test_regime_caps_the_dense_accumulator():
+    """Few updates on a large table: the JAX rule says dense, whose
+    accumulator ``[N, F+2]`` f32 grows with the table; above
+    `DENSE_ACC_MAX_BYTES` (32 MiB) the port takes the sorted kernel."""
+    cap = tscatter.DENSE_ACC_MAX_BYTES
+    assert cap == 32 << 20
+    assert tscatter._regime(1_000_000, 512, 2) == "dense"    # 16 MB: JAX rule
+    assert tscatter._regime(1_000_000, 512, 64) == "sorted"  # 264 MB
+    assert tscatter._regime(1_000_000, 16_384, 64) == "sorted"
+    F = 62                                             # 256 bytes a row
+    rows = cap // ((F + 2) * 4)
+    assert tscatter._regime(rows, 512, F) == "dense"          # at the cap
+    assert tscatter._regime(rows + 1, 512, F) == "sorted"     # one row over
+    # the chip smoke's shapes stay where they were
+    for N, B2, width, want in ((33_362, 16_384, 50, "sorted"),
+                               (10_000, 8_192, 50, "dense"),
+                               (3_706, 16_384, 20, "dense"),
+                               (33_362, 8, 50, "dense")):
+        assert tscatter._regime(N, B2, width) == want
 
 
 def test_apply_table_update_takes_the_plain_version_on_cpu():

@@ -329,7 +329,7 @@ def test_pallas_scatter_step_matches_port_cpu_path(pallas_interpret):
     in the sorted regime, the user table in the dense one) against the
     port's CPU path."""
     I, B = 20_000, 1024
-    assert tscatter._regime(I, 2 * B) == "sorted"
+    assert tscatter._regime(I, 2 * B, 8) == "sorted"
     case = _step_case(64, I, B, features=False, seed=9)
     want, got = _candidate_pair(case, I, "bitmap", True, False,
                                 pallas_scatter=True)
