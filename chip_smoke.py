@@ -2,17 +2,18 @@
 """Smoke test of rankfm_tpu_torch on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py [--parent DIR | --only-updates | --only-host-half
-                           | --profiler-windows N]
+                           | --only-mesh | --profiler-windows N]
 
 ``--only-updates`` stops after phase 4, ``--only-host-half`` runs phase 10
-alone, ``--profiler-windows N`` counts the ``torch.profiler`` traces that
+alone, ``--only-mesh`` phase 11 after the single-device fit of phase 5,
+``--profiler-windows N`` counts the ``torch.profiler`` traces that
 come back without device time in N short windows with and without the
 idle margin the script leaves in each; none prints a result line.
 ``--parent DIR`` also measures another tree of this repository (an
 unpacked ``git archive`` of the parent commit) on the same card, before
 and after this one, each time in a process of its own, and prints its
-table-update times and its candidate and window-step epochs beside this
-tree's.
+table-update times and its candidate-step, window-step and fused epochs
+beside this tree's.
 
 Phases (each asserts; the first failure exits non-zero without the final
 result line):
@@ -96,15 +97,37 @@ result line):
    Instacart-shaped log of phase 6 (finite factors, ``hit_rate@10`` above
    the untrained factors', seconds per sweep) and at 600 x 2,500 against
    ``device='cpu'``; ``observe.device_memory_stats`` (peak allocated bytes)
-   and ``observe.trace`` around one epoch (a trace file).
+   and ``observe.trace`` around one epoch (a trace file);
+11. the mesh (``rankfm_tpu_torch.parallel``): first, in this process,
+   ``dp_fused_epoch`` on a ``data=1`` NCCL mesh against ``fused_epoch``
+   from the same tables (run 6: the same draws and records at every B1
+   launch, the same tables); then two ranks spawned with
+   ``torch.multiprocessing``, one card each over NCCL when there are two,
+   else both on ``cuda:0`` over gloo: (1) the ML-1M fit of phase 5 on
+   ``data=2`` with ``dp_sync_every`` 1 and 4, its hit rate and DCG at 10 at
+   most 0.05 below phase 5's, and one more epoch under ``torch.profiler``;
+   (2) the Instacart mixed schedule of phase 6 on ``data=2`` (B1, then B2
+   and B3 per rank); (3) the window step of phase 9 on ``data=2``; (4)
+   table parallelism on ``(data=1, model=2)`` at the table shape of
+   ``examples/webscale_smoke.py`` (100,000 users x 1,000,000 items, F 64,
+   WARP M=10, each item once: 1,000,000 rows), one epoch, the planner
+   placing it ``tp``; (5) ``recommend`` for 1,000 users (top 10, filtered)
+   from the shards, equal to a single-device model loaded from the mesh
+   model's ``save``. Both ranks' lls and table hashes must be equal; per
+   rank and run the launches, the epochs and the collectives (calls, bytes
+   and ms each: the delta all-reduce per sync group, the owner-gather
+   all-reduces and all-gathers of the table-parallel run).
 
 Each path runs with the launch counts set to 0 just before it and reads
-them just after. The second-to-last line is the kernels' JSON record; the
+them just after (on each rank, on the mesh); the kernels' JSON adds the
+mesh ranks' launches in ``launches`` and lists them in ``mesh_launches``. The second-to-last line is the kernels' JSON record; the
 last line is ``{"ok": true, "device": {...}}``. The script imports nothing
 of JAX.
 """
 
 import argparse
+import dataclasses
+import hashlib
 import json
 import shutil
 import subprocess
@@ -183,6 +206,12 @@ UPDATE_CASES = (
 # rows of the F 64 tables on which both kernels are timed with 512 updates:
 # where B3 overtakes B2, whose pass and accumulator grow with the table
 SWEEP_ROWS = (65_536, 131_072, 262_144, 524_288)
+# the mesh phase: the data-parallel ML-1M fit's hit rate and DCG at 10 may
+# fall at most the oracle band below the single-device fit's; the
+# table-parallel run's table shape (`examples/webscale_smoke.py:18`)
+MESH_BAND = 0.05
+WEB_USERS, WEB_ITEMS, WEB_F = 100_000, 1_000_000, 64
+MESH_TIMEOUT_S = 600
 
 
 class SmokeFailure(Exception):
@@ -734,6 +763,8 @@ def ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test):
     base.is_fit = True
     hr0 = evaluation.hit_rate(base, test, k=10)
     check(hr > hr0, f"hit rate {hr} does not beat the untrained model's {hr0}")
+    ref = {"hr": hr, "dcg": evaluation.discounted_cumulative_gain(
+        model, test, k=10)}
     tm = time_engine_epochs(torch, model, fused, None, "ML-1M",
                             candidate=False)
     print("ML-1M fused epochs (main layout), device synced: "
@@ -741,8 +772,9 @@ def ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test):
           flush=True)
     print(f"ML-1M serving: recommend 1000 users {rec_s:.3f} s, predict "
           f"{len(test)} pairs {pred_s:.3f} s, hit_rate@10 {hr:.4f} "
-          f"(untrained {hr0:.4f}) in {hr_s:.3f} s", flush=True)
-    return counts
+          f"(untrained {hr0:.4f}) in {hr_s:.3f} s; dcg@10 {ref['dcg']:.4f}",
+          flush=True)
+    return counts, ref
 
 
 def profile_call(torch, run, top=4, margin=PROFILE_MARGIN_S):
@@ -1283,10 +1315,324 @@ def host_half_path(torch, RankFM, evaluation, fused, scatter, train, test,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 11. the mesh (rankfm_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+def table_digest(weights):
+    """sha256 of the weight arrays, in key order."""
+    h = hashlib.sha256()
+    for k in sorted(weights):
+        h.update(np.ascontiguousarray(weights[k]).tobytes())
+    return h.hexdigest()
+
+
+def webscale_data():
+    """The web-scale table shape (``examples/webscale_smoke.py:18``):
+    100,000 users x 1,000,000 items, every item once (the catalog is built
+    from the interactions, so the 1M-item table needs 1M rows: the 5M rows
+    of the example cut to 1M), users uniform."""
+    rng = np.random.default_rng(3)
+    items = rng.permutation(WEB_ITEMS)
+    users = rng.integers(0, WEB_USERS, WEB_ITEMS)
+    return np.stack([users, items], 1).astype(np.int64)
+
+
+def mesh_fit(torch, mesh, fused, scatter, fit):
+    """``(model, record)`` of ``fit()`` on this rank, the launch counts and
+    the collective trace set to 0 just before it and read just after."""
+    reset_launches(torch, fused, scatter)
+    mesh.trace = []
+    model, fit_s = timed(torch, fit)
+    rec = {"fit_s": fit_s, "counts": launches_of(fused, scatter),
+           "collectives": collective_record(mesh),
+           "lls": [r["log_likelihood"] for r in model.training_log_],
+           "epoch_s": [r["seconds"] for r in model.training_log_],
+           "plan": dataclasses.asdict(model.last_fit_plan_),
+           "digest": table_digest(model._weights)}
+    return model, rec
+
+
+def collective_record(mesh):
+    """The traced collectives as ``{"tag/axis": {calls, bytes, ms}}``; the
+    trace is switched off."""
+    out = {f"{tag}/{axis}": {"calls": n, "bytes": b, "ms": ms}
+           for (tag, axis), (n, b, ms) in mesh.collective_stats().items()}
+    mesh.trace = None
+    return out
+
+
+def mesh_rank(rank, world, work, devices, backend, card):
+    """One rank of the mesh phase (spawned): runs 1-5, its record written
+    to ``work/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    global CARD
+    CARD = card
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from rankfm_tpu_torch import RankFM, evaluation
+    from rankfm_tpu_torch.ops import fused, scatter
+    from rankfm_tpu_torch.parallel import init_distributed, make_mesh
+
+    init_distributed(init_method=f"file://{work}/rendezvous",
+                     world_size=world, rank=rank, backend=backend)
+    mesh = make_mesh(data=world, device=devices[rank], backend=backend)
+    out = {"device": str(mesh.device), "backend": backend}
+    rng = np.random.default_rng(SEED)
+    data = make_synthetic(rng)
+    mask = rng.random(len(data)) < 0.8
+    train, test = data[mask], data[~mask]
+    cfg = dict(factors=20, loss="warp", max_samples=20,
+               learning_schedule="invscaling")
+
+    # 1. the ML-1M headline on data=2, merging every batch and every 4
+    for k in (1, 4):
+        model, rec = mesh_fit(torch, mesh, fused, scatter, lambda: RankFM(
+            **cfg, mesh=mesh, dp_sync_every=k).fit(train, epochs=6))
+        rec["hr"] = evaluation.hit_rate(model, test, k=10)
+        rec["dcg"] = evaluation.discounted_cumulative_gain(model, test, k=10)
+        wall, busy, _ = profile_call(
+            torch, lambda: model.fit_partial(train, epochs=1))
+        rec.update(profile_wall=wall, profile_busy=busy)
+        out[f"ml1m_sync{k}"] = rec
+    # 2. the Instacart mixed schedule: 5 fused + 1 candidate epoch
+    ic_train, _, ic_sw, _, _ = instacart_data()
+    _, out["instacart"] = mesh_fit(torch, mesh, fused, scatter, lambda: RankFM(
+        factors=50, loss="warp", max_samples=50, alpha=0.01, beta=0.1,
+        learning_rate=0.1, learning_schedule="invscaling", mesh=mesh).fit(
+        ic_train, sample_weight=ic_sw, epochs=6))
+    # 3. the window step
+    _, out["window"] = mesh_fit(torch, mesh, fused, scatter, lambda: RankFM(
+        **cfg, use_fused=False, mesh=mesh).fit(train, epochs=2))
+
+    # 4. table parallelism on (data=1, model=2) at the web-scale shape
+    mesh_tp = make_mesh(data=1, model=world, device=devices[rank],
+                        backend=backend)
+    web = webscale_data()
+    model, out["tp"] = mesh_fit(torch, mesh_tp, fused, scatter, lambda: RankFM(
+        factors=WEB_F, loss="warp", max_samples=10, alpha=0.01,
+        learning_rate=0.1, learning_schedule="invscaling",
+        mesh=mesh_tp).fit(web, epochs=1))
+    out["tp"]["shard_rows"] = model._w_tp["v_i"].shape[0]
+    # 5. sharded recommend from the shards, against a single-device model
+    # holding the same weights (saved: one all-gather of the shards)
+    users = np.arange(1000)
+    mesh_tp.trace = []
+    recs, rec_s = timed(torch, lambda: model.recommend(
+        users, n_items=10, filter_previous=True))
+    path = Path(work) / f"tp{rank}.npz"
+    _, save_s = timed(torch, lambda: model.save(str(path)))
+    out["recommend"] = {"s": rec_s, "save_s": save_s,
+                        "collectives": collective_record(mesh_tp),
+                        "lists": recs.values.tolist()}
+    single = RankFM.load(str(path), device=devices[rank])
+    path.unlink()
+    srecs, srec_s = timed(torch, lambda: single.recommend(
+        users, n_items=10, filter_previous=True))
+    out["recommend"].update(
+        single_s=srec_s,
+        same_as_single=bool(np.array_equal(recs.values, srecs.values,
+                                           equal_nan=True)))
+    with open(Path(work) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def mesh_data1_check(torch, fused, train):
+    """Run 6: `dp_fused_epoch` on a data=1 NCCL mesh in this process
+    against `fused_epoch` from the same tables, at the ML-1M main layout:
+    the same draws and records reach B1 (recorded at each launch), and the
+    same tables come out: bit for bit where B1 is bit for bit the same run
+    to run."""
+    import torch.distributed as dist
+
+    from rankfm_tpu_torch.parallel import init_distributed, make_mesh
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
+    init_distributed(init_method=f"file://{work}/rendezvous", world_size=1,
+                     rank=0, backend="nccl")
+    mesh = make_mesh(data=1, device="cuda:0", backend="nccl")
+    dev = mesh.device
+    bs, chunk, ub = 32768, 256, 1024
+    rec, group, cids, ublk, iblk = fused.make_records_grouped(
+        train[:, 0], train[:, 1], np.ones(len(train), np.float32), N_USERS,
+        N_ITEMS, bs, chunk, ub=ub)
+    layout = (torch.from_numpy(rec).to(dev), torch.from_numpy(group),
+              torch.from_numpy(cids), torch.from_numpy(ublk),
+              torch.from_numpy(iblk))
+    split = layout[:2] + fused.split_layout_for_mesh(*layout[2:], 1)
+    offsets = np.zeros(N_USERS + 1, np.int64)
+    pairs = np.unique(train, axis=0)
+    offsets[1:] = np.cumsum(np.bincount(pairs[:, 0], minlength=N_USERS))
+    packed = torch.from_numpy(fused.pack_history(
+        offsets, pairs[:, 1].astype(np.int32), N_USERS, N_ITEMS)).to(dev)
+    rng = np.random.default_rng(SEED + 6)
+    w0 = [torch.from_numpy(rng.normal(0, s, shape).astype(np.float32)).to(dev)
+          for s, shape in ((0.05, N_ITEMS), (0.1, (N_USERS, 20)),
+                           (0.1, (N_ITEMS, 20)))]
+    kw = dict(num_users=N_USERS, num_items=N_ITEMS, factors=20,
+              max_samples=20, batch_size=bs, chunk=chunk, ub=ub)
+    seen = []
+    real = fused.fused_batch
+
+    def spy(tab_u, tab_i, rec_b, packed_, blk, ublk_b, iblk_b, seed, *a,
+            **k):
+        seen[-1].append((int(seed), blk.cpu().numpy().tobytes(),
+                         ublk_b.cpu().numpy().tobytes(),
+                         iblk_b.cpu().numpy().tobytes(),
+                         hashlib.sha256(rec_b.cpu().numpy()).hexdigest()))
+        return real(tab_u, tab_i, rec_b, packed_, blk, ublk_b, iblk_b, seed,
+                    *a, **k)
+
+    outs = []
+    fused.fused_batch = spy
+    try:
+        for dp in (False, True, False):
+            seen.append([])
+            tabs = fused.extend_tables(*w0, fused.user_pad(N_USERS, ub),
+                                       fused.item_pad(N_ITEMS))
+            if dp:
+                ll = fused.dp_fused_epoch(*tabs, packed, split, 0.05, 0.01,
+                                          SEED, 3, mesh=mesh, **kw)
+            else:
+                ll = fused.fused_epoch(*tabs, packed, layout, 0.05, 0.01,
+                                       SEED, 3, **kw)
+            outs.append((tabs, float(ll)))
+    finally:
+        fused.fused_batch = real
+    dist.destroy_process_group()
+    check(seen[0] == seen[1] == seen[2] and len(seen[0]) > 0,
+          "data=1 mesh: B1 received other draws than fused_epoch's")
+    (a, lla), (b, llb), (c, llc) = outs
+    kernel_exact = all(torch.equal(x, y) for x, y in zip(a, c))
+    err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    if kernel_exact:
+        check(err == 0.0 and lla == llb,
+              f"data=1 mesh differs from fused_epoch by {err}")
+    else:
+        check(err <= TABLE_ATOL, f"data=1 mesh differs by {err}")
+    print(f"mesh run 6: dp_fused_epoch on a data=1 NCCL mesh vs fused_epoch, "
+          f"ML-1M main layout, {len(seen[0])} batches: the same draws and "
+          f"records at every B1 launch; tables "
+          + ("bit-equal (B1 is bit for bit the same run to run)"
+             if kernel_exact else
+             f"within {err:.2e} (B1 itself differs run to run: f32 atomics)")
+          + f"; ll {lla:.3f} / {llb:.3f} ({CARD})", flush=True)
+
+
+def print_mesh_record(rank, tag, rec):
+    """One line per rank and run: epochs, busy share, collectives."""
+    coll = "; ".join(
+        f"{k} {c['calls']} x {c['bytes'] / max(c['calls'], 1) / 1e6:.3f} MB, "
+        f"{c['ms'] / max(c['calls'], 1):.3f} ms each"
+        for k, c in sorted(rec["collectives"].items()))
+    busy = ""
+    if "profile_wall" in rec:
+        busy = (f"; one more epoch (fit_partial) wall "
+                f"{1e3 * rec['profile_wall']:.1f} ms, device "
+                + ("time not traced" if rec["profile_busy"] is None else
+                   f"busy {100 * rec['profile_busy'] / rec['profile_wall']:.0f}%"))
+    print(f"mesh {tag}, rank {rank}: fit {rec['fit_s']:.2f} s, epochs "
+          f"{', '.join(f'{x:.3f}' for x in rec['epoch_s'])} s (fit average)"
+          f"{busy}; launches {rec['counts']}; collectives: {coll} ({CARD})",
+          flush=True)
+
+
+def mesh_phase(torch, fused, train, ref):
+    """Phase 11: two ranks spawned on the card(s) (runs 1-5), then run 6
+    in this process. Returns the launch counts of the ranks' runs, summed."""
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        devices, backend = ["cuda:0", "cuda:1"], "nccl"
+        how = "one card each, NCCL"
+    else:
+        devices, backend = ["cuda:0", "cuda:0"], "gloo"
+        how = ("both on cuda:0, gloo through the host (NCCL refuses two "
+               "ranks on one device)")
+    print(f"mesh: 2 ranks, {how}", flush=True)
+    mesh_data1_check(torch, fused, train)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.time()
+    ctx = torch.multiprocessing.start_processes(
+        mesh_rank, args=(2, work, devices, backend, CARD), nprocs=2,
+        join=False, start_method="spawn")
+    while not ctx.join(timeout=5):
+        if time.time() - t0 > MESH_TIMEOUT_S:
+            for p in ctx.processes:
+                p.kill()
+            check(False, f"the mesh ranks ran past {MESH_TIMEOUT_S} s")
+    res = []
+    for r in range(2):
+        with open(Path(work) / f"rank{r}.json") as f:
+            res.append(json.load(f))
+    print(f"mesh ranks: {time.time() - t0:.1f} s for runs 1-5", flush=True)
+
+    runs = ("ml1m_sync1", "ml1m_sync4", "instacart", "window", "tp")
+    for run in runs:
+        a, b = res[0][run], res[1][run]
+        check(a["lls"] == b["lls"] and np.isfinite(a["lls"]).all(),
+              f"mesh {run}: the ranks' lls differ or are not finite: "
+              f"{a['lls']} / {b['lls']}")
+        check(a["digest"] == b["digest"],
+              f"mesh {run}: the ranks' final tables differ")
+        for r, rec in enumerate((a, b)):
+            print_mesh_record(r, run, rec)
+    for run in runs[:2]:
+        plan = res[0][run]["plan"]
+        check(plan["fused"] and plan["placement"] == "dp"
+              and plan["n_dev"] == 2 and plan["chunk_tail"] == 0,
+              f"mesh {run} plan {plan}")
+        for rec in (res[0][run], res[1][run]):
+            check(rec["counts"]["fused_chunk"] > 0,
+                  f"mesh {run}: B1 did not launch on a rank: {rec['counts']}")
+            for m in ("hr", "dcg"):
+                check(rec[m] >= ref[m] - MESH_BAND,
+                      f"mesh {run}: {m}@10 {rec[m]:.4f} more than "
+                      f"{MESH_BAND} below the single-device {ref[m]:.4f}")
+        print(f"mesh {run}: hit_rate@10 {res[0][run]['hr']:.4f}, dcg@10 "
+              f"{res[0][run]['dcg']:.4f} (single device {ref['hr']:.4f}, "
+              f"{ref['dcg']:.4f})", flush=True)
+    plan = res[0]["instacart"]["plan"]
+    check(plan["fused"] and plan["n_main"] == 5 and plan["n_tail"] == 1
+          and plan["placement"] == "dp", f"mesh instacart plan {plan}")
+    plan = res[0]["window"]["plan"]
+    check(not plan["fused"] and plan["step_kind"] == "window"
+          and plan["placement"] == "dp", f"mesh window plan {plan}")
+    plan = res[0]["tp"]["plan"]
+    check(plan["placement"] == "tp" and not plan["fused"],
+          f"mesh tp plan {plan}")
+    for rec in (res[0]["instacart"], res[1]["instacart"]):
+        c = rec["counts"]
+        check(c["fused_chunk"] > 0 and c["table_update_sorted"] > 0
+              and c["table_update_dense"] > 0,
+              f"mesh instacart: B1, B2 and B3 did not all launch: {c}")
+    for run in ("window", "tp"):
+        for rec in (res[0][run], res[1][run]):
+            c = rec["counts"]
+            check(c["table_update_sorted"] + c["table_update_dense"] > 0,
+                  f"mesh {run}: no table update launched: {c}")
+    rec0, rec1 = res[0]["recommend"], res[1]["recommend"]
+    check(rec0["lists"] == rec1["lists"], "mesh: the ranks' lists differ")
+    check(rec0["same_as_single"] and rec1["same_as_single"],
+          "mesh: the sharded lists differ from the single-device lists")
+    print(f"mesh run 4: TP fit of {WEB_USERS} users x {WEB_ITEMS} items, F "
+          f"{WEB_F}, {res[0]['tp']['shard_rows']} item rows per rank; run 5: "
+          f"recommend 1000 users, top 10, filtered, from the shards "
+          f"{rec0['s']:.3f} s (rank 0) / {rec1['s']:.3f} s; the same lists "
+          f"as a single-device model ({rec0['single_s']:.3f} s); save with "
+          f"its all-gather {rec0['save_s']:.3f} s; collectives "
+          f"{rec0['collectives']} ({CARD})", flush=True)
+    return {k: sum(r[run]["counts"][k] for r in res for run in runs)
+            for k in res[0]["tp"]["counts"]}
+
+
 def tree_times(tree):
     """The times of another tree of this repository (``--times-of`` in a
     process of its own): ``{"update": {"case/kernel": times}, "candidate":
-    [s, s], "window": [s, s]}``."""
+    [s, s], "window": [s, s], "fused": [s, s]}``."""
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--times-of",
          str(tree)], capture_output=True, text=True, timeout=900)
@@ -1296,7 +1642,7 @@ def tree_times(tree):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def print_parent_table(parents, times, candidate, window):
+def print_parent_table(parents, times, candidate, window, fused):
     """This tree's table-update and epoch times beside the parent tree's,
     measured before and after them on the same card."""
     for key, tm in times.items():
@@ -1316,8 +1662,13 @@ def print_parent_table(parents, times, candidate, window):
               + f" -> {tm['activities']:.0f}"
               + ("" if tm["ms"] <= min(o["ms"] for o in old)
                  else "  SLOWER than the parent") + f" ({CARD})", flush=True)
-    for name, new in (("candidate", candidate), ("window", window)):
-        print(f"parent vs new, {name}-step epoch, device synced: "
+    for name, what, new in (
+            ("candidate", "Instacart candidate-step", candidate),
+            ("window", "ML-1M window-step", window),
+            ("fused", "Instacart fused", fused)):
+        if any(name not in p for p in parents):
+            continue
+        print(f"parent vs new, {what} epoch, device synced: "
               + " / ".join(", ".join(f"{x:.3f}" for x in p[name])
                            for p in parents)
               + " -> " + ", ".join(f"{x:.3f}" for x in new)
@@ -1388,6 +1739,12 @@ def run(args):
         host_half_path(torch, RankFM, evaluation, fused, scatter, train, test,
                        instacart_data())
         return 0
+    if args.only_mesh:
+        # the single-device ML-1M fit the mesh's is held against, then 11
+        _, ref = ml1m_path(torch, RankFM, evaluation, fused, scatter, train,
+                           test)
+        mesh_phase(torch, fused, train, ref)
+        return 0
     if args.times_of:
         # phases 4, 6 and 9 of another tree, through what both trees have
         _, times = update_phase(torch, scatter, dev, other_tree=True)
@@ -1395,7 +1752,7 @@ def run(args):
                                training, instacart_data())
         _, win = window_path(torch, RankFM, fused, scatter, training, train)
         print(json.dumps({"update": times, "candidate": tm["candidate"],
-                          "window": win}))
+                          "window": win, "fused": tm["fused"]}))
         return 0
     parents = [tree_times(args.parent)] if args.parent else []
 
@@ -1426,7 +1783,9 @@ def run(args):
 
     # 5-10. the paths, each with its own launch counts
     ic_data = instacart_data()
-    paths = [ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test)]
+    counts, ml1m_ref = ml1m_path(torch, RankFM, evaluation, fused, scatter,
+                                 train, test)
+    paths = [counts]
     counts, tm_ic = instacart_path(torch, RankFM, evaluation, fused, scatter,
                                    training, ic_data)
     paths.append(counts)
@@ -1449,9 +1808,14 @@ def run(args):
     # 10. ingest, resume, checkpoint, baseline
     paths.append(host_half_path(torch, RankFM, evaluation, fused, scatter,
                                 train, test, ic_data))
+
+    # 11. the mesh: two ranks (runs 1-5), a data=1 mesh in this process
+    mesh_counts = mesh_phase(torch, fused, train, ml1m_ref)
+    paths.append(mesh_counts)
     if args.parent:
         parents.append(tree_times(args.parent))
-        print_parent_table(parents, up_times, tm_ic["candidate"], win_s)
+        print_parent_table(parents, up_times, tm_ic["candidate"], win_s,
+                           tm_ic["fused"])
     total = {k: sum(p[k] for p in paths) for k in paths[0]}
     check(all(total[k] > 0 for k in total),
           f"a kernel was never launched on the paths: {total}")
@@ -1465,24 +1829,28 @@ def run(args):
          "source": "rankfm_tpu_torch/csrc/fused_chunk.cu",
          "replaces": "rankfm_tpu/ops/fused.py:542",
          "launches": total["fused_chunk"],
+         "mesh_launches": mesh_counts["fused_chunk"],
          "max_abs_err": max(kp["max_abs_err"], kp_ic["max_abs_err"]),
          **{k: kp["c256"][k] for k in B1_KEYS}, "library_ms": None},
         {"name": "fused_chunk_features", "route": "cuda",
          "source": "rankfm_tpu_torch/csrc/fused_chunk.cu",
          "replaces": "rankfm_tpu/ops/fused.py:545",
          "launches": total["fused_chunk_features"],
+         "mesh_launches": mesh_counts["fused_chunk_features"],
          "max_abs_err": max(k["max_abs_err"] for k in [kpf_ic] + kpf_ml),
          **{k: kpf_ic["c128"][k] for k in B1_KEYS}, "library_ms": None},
         {"name": "table_update_sorted", "route": "cuda",
          "source": "rankfm_tpu_torch/csrc/table_update.cu",
          "replaces": "rankfm_tpu/ops/scatter.py:73",
          "launches": total["table_update_sorted"],
+         "mesh_launches": mesh_counts["table_update_sorted"],
          "max_abs_err": up["sorted"]["max_abs_err"],
          **{k: up["sorted"][k] for k in UPDATE_KEYS}, "library_ms": None},
         {"name": "table_update_dense", "route": "cuda",
          "source": "rankfm_tpu_torch/csrc/table_update.cu",
          "replaces": "rankfm_tpu/ops/scatter.py:61",
          "launches": total["table_update_dense"],
+         "mesh_launches": mesh_counts["table_update_dense"],
          "max_abs_err": up["dense"]["max_abs_err"],
          **{k: up["dense"][k] for k in UPDATE_KEYS}, "library_ms": None},
     ]}
@@ -1499,6 +1867,9 @@ def main():
                     help="phases 1, 2 and 4 only; prints no result line")
     ap.add_argument("--only-host-half", action="store_true",
                     help="phases 1, 2 and 10 only; prints no result line")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="phases 1, 2, 5 (the single-device reference) and "
+                         "11 only; prints no result line")
     ap.add_argument("--profiler-windows", type=int, metavar="N",
                     help="phases 1 and 2, then N short torch.profiler "
                          "windows with and N without the idle margin; "

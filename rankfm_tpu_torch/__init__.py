@@ -22,7 +22,10 @@ is its plain PyTorch version. Around them, the host half of `rankfm_tpu`:
 * ``model.save(path)`` / ``RankFM.load(path, device='cuda')``: the JAX
   package's pickle-free ``.npz``, readable by either package;
 * ``baselines.ImplicitALS`` and ``utils.observe`` (``trace``,
-  ``device_memory_stats``).
+  ``device_memory_stats``);
+* ``parallel``: ``init_distributed`` and ``make_mesh`` on
+  ``torch.distributed``, then ``RankFM(mesh=...)`` on every rank: the
+  data-parallel and table-parallel placements and sharded retrieval.
 
 This package imports ``torch`` and never ``jax``.
 """

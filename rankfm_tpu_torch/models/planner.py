@@ -8,9 +8,10 @@ reasons are documented in the JAX package.
 
 The port runs the fused engine (with its chunk-tail or its candidate
 tail) and the XLA window and candidate engines, with or without side
-features. `plan_fit` raises `NotImplementedError`, naming the ROADMAP
-item, for every plan outside that: a mesh, a wide-window tail,
-pre-shuffled layouts.
+features, on one device or on a mesh (`rankfm_tpu_torch.parallel`:
+data-parallel or table-parallel placement). `plan_fit` raises
+`NotImplementedError`, naming the ROADMAP item, for the plans outside
+that: a wide-window tail, pre-shuffled layouts.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ class FitSpec:
     nnz_hist: int = 0         # total distinct (u, i) history pairs
     mean_sample_weight: float = 1.0
     on_gpu: bool = False      # the backend runs the fused engine
-    mesh: object = None       # a device mesh (not ported: must be None)
+    mesh: object = None       # a `parallel.mesh.Mesh` (only .shape is read)
     table_bytes: int = 0      # weight bytes (DP-vs-TP input)
     # knobs (RankFM constructor extras)
     batch_size: Optional[int] = None
@@ -103,6 +104,14 @@ class FitPlan:
 POST_REJECT_DENSITY = 0.02
 
 
+def _mesh_devices(mesh):
+    n = 1
+    if mesh is not None:
+        for v in mesh.shape.values():
+            n *= v
+    return n
+
+
 def _auto_batch_size(spec, fused):
     """Auto minibatch size: up to 32k on the fused engine (whose
     synchronous unit is the chunk), else a stability-capped power of two
@@ -125,24 +134,33 @@ def plan_fit(spec: FitSpec) -> FitPlan:
         max_samples = spec.max_samples
     else:
         raise ValueError("[loss] function not recognized")
-    if spec.mesh is not None:
-        raise NotImplementedError(
-            "mesh placement is not ported yet (ROADMAP queue 1, item 4: "
-            "Parallel)")
 
     U, I, F = spec.num_users, spec.num_items, spec.factors
-    n_dev = 1
+    n_dev = _mesh_devices(spec.mesh)
     nblk = fused_mod.item_pad(I) // fused_mod.block_size(I)
 
     table_mode = fused_mod.fused_table_mode(
         U, I, F, spec.x_uf_any, spec.x_if_any,
         num_uf=spec.num_uf, num_if=spec.num_if)
-    fused_possible = (spec.use_fused in (True, "auto") and spec.on_gpu
-                      and table_mode is not None)
+    # on a mesh the fused engine runs data-parallel only: replicated
+    # tables, one delta all-reduce per sync group
+    fused_mesh_ok = False
+    if spec.mesh is not None and table_mode is not None:
+        from rankfm_tpu_torch.parallel.train import uses_dp
+        fused_mesh_ok = uses_dp(spec.mesh, 128 * n_dev, spec.table_bytes)
+    fused_possible = (spec.use_fused in (True, "auto")
+                      and (spec.mesh is None or fused_mesh_ok)
+                      and spec.on_gpu and table_mode is not None)
     bs = _auto_batch_size(spec, fused=fused_possible)
-    fused = fused_possible and bs >= 128 and bs % 128 == 0
+    if fused_possible and spec.mesh is not None and spec.batch_size is None:
+        # the global batch deals whole 128-row chunk multiples to every rank
+        q = 128 * n_dev
+        bs = (bs + q - 1) // q * q
+    fused = (fused_possible and bs >= 128 * n_dev
+             and bs % (128 * n_dev) == 0)
 
-    chunk = fused_mod.pick_chunk(max(bs, 128), U, I, spec.n) if fused else 0
+    chunk = (fused_mod.pick_chunk(max(bs // n_dev, 128), U, I, spec.n)
+             if fused else 0)
     ub = fused_mod.pick_user_block(U, I, spec.n, chunk) if fused else 0
     sub = DEFAULT_SUB if fused else 1
     if not fused or spec.shuffle_layouts == "auto":
@@ -159,6 +177,9 @@ def plan_fit(spec: FitSpec) -> FitPlan:
             nw_main = None
 
     bs_x = _auto_batch_size(spec, fused=False)
+    if spec.mesh is not None:
+        # the padded row count must split evenly over the ranks
+        bs_x = (bs_x + n_dev - 1) // n_dev * n_dev
     if spec.train_step in ("auto", "mixed"):
         step_kind = "window" if 2 < nblk <= 8 else "candidate"
     else:
@@ -172,6 +193,10 @@ def plan_fit(spec: FitSpec) -> FitPlan:
     else:
         rounds = int(spec.sample_rounds)
     placement = "single"
+    if spec.mesh is not None:
+        from rankfm_tpu_torch.parallel.train import uses_dp
+        placement = ("dp" if uses_dp(spec.mesh, bs_x, spec.table_bytes)
+                     else "tp")
 
     n_tail = 0
     if fused and (spec.train_step == "mixed"
@@ -192,8 +217,9 @@ def plan_fit(spec: FitSpec) -> FitPlan:
     chunk_tail = 0
     tail_chunk = tail_ub = 0
     tail_sub = 1
-    if (fused and n_tail == 0 and chunk > 128 and shuffle_layouts == 1
-            and spec.epochs >= 2):
+    # gated off on a mesh: the data-parallel chunk split is dealt once
+    if (fused and n_tail == 0 and spec.mesh is None and chunk > 128
+            and shuffle_layouts == 1 and spec.epochs >= 2):
         chunk_tail = max(1, spec.epochs // 6)
         tail_chunk, tail_ub, tail_sub = 128, 256, 8
 

@@ -17,7 +17,15 @@ and the record layouts of the call before, ``last_fit_timing_`` holds the
 host phases of the last call in seconds, and `save` / `load` write and read
 the JAX package's ``.npz`` checkpoint.
 
-Not ported yet (raises until its ROADMAP item lands): mesh placement.
+On a mesh (``mesh=rankfm_tpu_torch.parallel.make_mesh(data, model)``, one
+process per device, every rank calling the same methods on the same data)
+the planner places the weights data-parallel (replicated tables, one delta
+all-reduce per sync group: the fused engine through
+`fused.dp_fused_epoch`, the XLA steps through `parallel.train`) or, past
+`parallel.train.DP_TABLE_BYTES`, table-parallel (`parallel.tp`: each rank
+keeps its row shards, `recommend` scores from them, and reading the
+weights gathers them); `recommend` merges per-shard top-k lists over the
+``model`` axis (`parallel.retrieval`).
 """
 
 from __future__ import annotations
@@ -171,9 +179,10 @@ class _FitRun:
         tm["block_s"] = round(time.time() - t_disp, 2)  # device drain + ll sync
 
     def run_xla(self, epochs, step_kind=None):
-        """Epochs of the XLA window or candidate step (single placement),
-        continuing the global epoch numbering so the eta schedule and the
-        random streams line up with any fused epochs before them."""
+        """Epochs of the XLA window or candidate step, on one device or
+        placed on the mesh as the plan says, continuing the global epoch
+        numbering so the eta schedule and the random streams line up with
+        any fused epochs before them."""
         m, plan = self.m, self.plan
         self.pull = None  # m._w is updated every epoch here
         n, num_items = self.n, self.I
@@ -195,18 +204,35 @@ class _FitRun:
         u, i, sw = u.to(dev), i.to(dev), sw.to(dev)
         mrl = (int(np.diff(m._ui_offsets).max())
                if len(m._ui_offsets) > 1 else 1)
+        if plan.placement == 'tp':
+            self.run_tp(epochs, step_kind, u, i, sw, mrl)
+            return
         if step_kind == 'candidate':
-            step = training.make_train_step(
-                num_items, plan.max_samples, self.x_uf_any, self.x_if_any,
-                sample_rounds=plan.rounds, sampler=m._sampler,
-                post_reject=plan.post_reject, max_row_len=mrl)
             hist = {"offsets": m._offsets_dev, "flat": m._flat_items_dev,
                     "bitmap": m._ensure_bitmap()}
         else:
-            step = training.make_window_train_step(
-                num_items, plan.max_samples, self.x_uf_any, self.x_if_any)
             hist = m._ensure_packed_hist()
-        epoch_fn = training.epoch_body(step, bs_x)
+        if m.mesh is not None:
+            # data-parallel: replicated tables, one delta all-reduce per
+            # sync group (the JAX DP path's step, `parallel.train`)
+            from rankfm_tpu_torch.parallel.train import make_sharded_epoch_fn
+            epoch_fn = make_sharded_epoch_fn(
+                m.mesh, num_items, plan.max_samples, self.x_uf_any,
+                self.x_if_any, bs_x, sample_rounds=plan.rounds,
+                sampler=m._sampler, step_kind=step_kind, dp=True,
+                dp_sync_every=m.dp_sync_every)
+        else:
+            if step_kind == 'candidate':
+                step = training.make_train_step(
+                    num_items, plan.max_samples, self.x_uf_any,
+                    self.x_if_any, sample_rounds=plan.rounds,
+                    sampler=m._sampler, post_reject=plan.post_reject,
+                    max_row_len=mrl)
+            else:
+                step = training.make_window_train_step(
+                    num_items, plan.max_samples, self.x_uf_any,
+                    self.x_if_any)
+            epoch_fn = training.epoch_body(step, bs_x)
         # the steps update the item and user tables in place: train copies,
         # so arrays handed out before this fit (`_weights`, `v_i`, ...; on
         # the CPU these are views) keep their values
@@ -219,6 +245,33 @@ class _FitRun:
             m._w = w
             self.log_epoch(epoch, _ll_guard(ll, list(w.values())),
                            time.time() - t0)
+
+    def run_tp(self, epochs, step_kind, u, i, sw, mrl):
+        """Table-parallel epochs (`parallel.tp`): each rank trains its row
+        shards and keeps them on the model. The epoch function returns the
+        log-likelihood already summed and guarded over every rank."""
+        from rankfm_tpu_torch.parallel import tp as tp_mod
+
+        m, plan = self.m, self.plan
+        fn = tp_mod.tp_epoch_fn(
+            m.mesh, self.I, plan.max_samples, self.x_uf_any, self.x_if_any,
+            plan.xla_batch, sample_rounds=plan.rounds, max_row_len=mrl,
+            post_reject=plan.post_reject, step_kind=step_kind)
+        w_tp, xu_tp, xi_tp = tp_mod.pad_and_place(
+            m.mesh, m._w, m._x_uf_dev, m._x_if_dev)
+        m._w_tp, m._w_full = w_tp, None
+        if step_kind == 'window':
+            hist = {"packed": tp_mod.pad_packed_hist(
+                m.mesh, m._ensure_packed_hist(), self.U)}
+        else:
+            hist = {"offsets": m._offsets_dev, "flat": m._flat_items_dev}
+        for epoch in epochs:
+            t0 = time.time()
+            w_tp, ll = fn(w_tp, xu_tp, xi_tp, hist, u, i, sw, self.n,
+                          self.eta(epoch), m.alpha, m.beta, m.seed,
+                          self.rng_off + epoch)
+            m._w_tp = w_tp
+            self.log_epoch(epoch, ll, time.time() - t0)
 
     def run_fused(self):
         m, plan = self.m, self.plan
@@ -267,6 +320,10 @@ class _FitRun:
             return layout
 
         main_layout = layout_for(plan.chunk, plan.user_block)
+        if m.mesh is not None:
+            # each batch's chunks dealt to the ranks (device-major)
+            main_layout = main_layout[:2] + fused_mod.split_layout_for_mesh(
+                *main_layout[2:], plan.n_dev)
         # grouped record layout: host numpy segmented shuffle + the multi-MB
         # host->device copy
         tm["records_s"] = round(time.time() - tm0 - tm["hist_pack_s"], 2)
@@ -303,14 +360,16 @@ class _FitRun:
             live = [t for t in (tab_u, tab_i, tab_uf, tab_if) if t is not None]
             for epoch in epochs:
                 t0 = time.time()
-                ll = fused_mod.fused_epoch(
+                # one device, or this rank of the data-parallel mesh
+                ll = fused_mod.dp_fused_epoch(
                     tab_u, tab_i, packed, layout, self.eta(epoch), m.alpha,
-                    m.seed, self.rng_off + epoch, num_users=U,
+                    m.seed, self.rng_off + epoch, mesh=m.mesh, num_users=U,
                     num_items=num_items, factors=F,
                     max_samples=plan.max_samples,
                     batch_size=plan.batch_size, chunk=chunk, ub=ub,
-                    n_windows=plan.n_windows, x_uf=x_uf, x_if=x_if,
-                    tab_uf=tab_uf, tab_if=tab_if, beta=m.beta)
+                    n_windows=plan.n_windows, sync_every=m.dp_sync_every,
+                    x_uf=x_uf, x_if=x_if, tab_uf=tab_uf, tab_if=tab_if,
+                    beta=m.beta)
                 self.log_epoch(epoch, _ll_guard(ll, live), time.time() - t0)
 
         # chunk-tail schedule: the closing epochs run at the oracle-parity
@@ -368,6 +427,11 @@ class RankFM:
 
         :param device: torch device of the weights and of training
             ('cuda' by default; 'cpu' runs the fused engine's plain version)
+        :param mesh: a `rankfm_tpu_torch.parallel.make_mesh` mesh: every
+            rank trains its placement of the model (the mesh's device
+            replaces ``device``)
+        :param dp_sync_every: on the data-parallel mesh path, the batches
+            each replica runs between two delta all-reduces
         """
 
         # validate user input
@@ -422,7 +486,7 @@ class RankFM:
         self.neg_sampler = neg_sampler
         self.use_fused = use_fused
         self.mesh = mesh
-        self.device = torch.device(device)
+        self.device = mesh.device if mesh is not None else torch.device(device)
 
         self._reset_state()
 
@@ -456,7 +520,8 @@ class RankFM:
         self.x_uf = None
         self.x_if = None
 
-        # weights: dict of tensors on self.device (w_i, w_if, v_u, v_i, v_uf, v_if)
+        # weights: dict of tensors on self.device (w_i, w_if, v_u, v_i, v_uf,
+        # v_if); after a table-parallel fit, this rank's row shards instead
         self._w = None
         self._x_uf_dev = None
         self._x_if_dev = None
@@ -485,9 +550,26 @@ class RankFM:
     # -- weight views (numpy copies on the host) --
 
     @property
+    def _w(self):
+        """The weights, a dict of tensors on the model's device. After a
+        table-parallel fit the rank holds only its row shards (``_w_tp``);
+        reading ``_w`` then gathers the whole tables with one all-gather
+        over ``model``, which every rank must call."""
+        if self._w_tp is not None:
+            from rankfm_tpu_torch.parallel import tp
+            return tp.extract(self.mesh, self._w_tp, len(self.user_idx),
+                              len(self.item_idx))
+        return self._w_full
+
+    @_w.setter
+    def _w(self, w):
+        self._w_full, self._w_tp = w, None
+
+    @property
     def _weights(self):
         """The weights as host numpy arrays, keyed as in `rankfm_tpu`."""
-        return None if self._w is None else weights_to_numpy(self._w)
+        w = self._w
+        return None if w is None else weights_to_numpy(w)
 
     @_weights.setter
     def _weights(self, w):
@@ -498,7 +580,8 @@ class RankFM:
              for k, v in w.items()}, self.device)
 
     def _np_weight(self, name):
-        return None if self._w is None else self._w[name].cpu().numpy()
+        w = self._w
+        return None if w is None else w[name].cpu().numpy()
 
     @property
     def w_i(self):
@@ -716,8 +799,9 @@ class RankFM:
             "v_uf": "user-feature factors [v_uf]",
             "v_if": "item-feature factors [v_if]",
         }
+        w = self._w
         for k, label in names.items():
-            assert bool(torch.isfinite(self._w[k]).all()), \
+            assert bool(torch.isfinite(w[k]).all()), \
                 f"{label} are not finite - try decreasing feature/sample_weight magnitudes"
 
     def _reg_penalty(self):
@@ -766,8 +850,10 @@ class RankFM:
         if self.is_fit:
             self._init_interactions(interactions, sample_weight)
             self._init_features(user_features, item_features)
-            for side, x, vf in (("user", self.x_uf, self._w["v_uf"]),
-                                ("item", self.x_if, self._w["v_if"])):
+            # the feature tables replicate on every placement: no gather
+            w = self._w_full if self._w_tp is None else self._w_tp
+            for side, x, vf in (("user", self.x_uf, w["v_uf"]),
+                                ("item", self.x_if, w["v_if"])):
                 assert x.shape[1] == vf.shape[0], (
                     f"[{side}_features] column count changed since fit() "
                     f"({x.shape[1]} vs {vf.shape[0]}): feature weights are "
@@ -779,6 +865,8 @@ class RankFM:
         self.last_fit_timing_ = {"ingest_s": round(time.time() - t_fp0, 2)}
 
         sw = self.sample_weight
+        U, I, F = len(self.user_idx), len(self.item_idx), self.factors
+        P, Q = self.x_uf.shape[1], self.x_if.shape[1]
         spec = FitSpec(
             n=len(self.interactions),
             num_users=len(self.user_idx), num_items=len(self.item_idx),
@@ -791,7 +879,8 @@ class RankFM:
             # the fused engine runs on every device the port supports: the
             # CUDA kernel on a GPU, its plain version on the CPU
             on_gpu=True, mesh=self.mesh,
-            table_bytes=sum(int(np.prod(v.shape)) * 4 for v in self._w.values()),
+            # the bytes of the six weight tensors, from their shapes
+            table_bytes=4 * (I + Q + (U + I + P + Q) * F),
             batch_size=self.batch_size, train_step=self.train_step,
             use_fused=self.use_fused, n_windows=self.n_windows,
             tail_windows=self.tail_windows, sample_rounds=self.sample_rounds,
@@ -857,13 +946,22 @@ class RankFM:
 
         # can't recommend more items than the catalog holds
         n_items = min(int(n_items), len(self.item_idx))
-        use_bitmap_filter = filter_previous and self._sampler == 'bitmap'
+        use_bitmap_filter = (filter_previous and self.mesh is None
+                             and self._sampler == 'bitmap')
 
         out = np.full((len(user_idx), n_items), np.nan, dtype=np.float64)
         if len(known_idx):
             chunks = []
             chunk_sz = _recommend_chunk(len(self.item_idx))
             no_seen = torch.zeros(0, dtype=torch.int64, device=self.device)
+            if self.mesh is not None:
+                # this rank's item shard: the rows it owns after a
+                # table-parallel fit, else its slice of the whole tables
+                from rankfm_tpu_torch.parallel import retrieval
+                sharded = self._w_tp is not None
+                w = self._w_tp if sharded else self._w
+                i_mat, ib = retrieval.item_operands(
+                    self.mesh, w, self._x_if_dev, len(self.item_idx), sharded)
             for s in range(0, len(known_idx), chunk_sz):
                 batch = known_idx[s:s + chunk_sz]
                 u_dev = torch.from_numpy(batch).to(self.device)
@@ -877,9 +975,15 @@ class RankFM:
                         r, c = self._seen_pairs_for(batch)
                         rows = torch.from_numpy(r.astype(np.int64)).to(self.device)
                         cols = torch.from_numpy(c.astype(np.int64)).to(self.device)
-                    top_items, _ = topk.topk_for_users(
-                        self._w, self._x_uf_dev, self._x_if_dev, u_dev,
-                        n_items, rows, cols)
+                    if self.mesh is not None:
+                        u_mat = retrieval.user_operands(
+                            self.mesh, w, self._x_uf_dev, u_dev, sharded)
+                        top_items, _ = retrieval.sharded_topk(
+                            self.mesh, u_mat, i_mat, ib, rows, cols, n_items)
+                    else:
+                        top_items, _ = topk.topk_for_users(
+                            self._w, self._x_uf_dev, self._x_if_dev, u_dev,
+                            n_items, rows, cols)
                 chunks.append(top_items.cpu().numpy())
             out[known] = np.concatenate(chunks, axis=0)
             # -1 = exhausted-catalog slot -> NaN, never a wrapped-around id

@@ -12,7 +12,9 @@ arrays compare bit for bit:
   (`pack_history`), pad items marked as members;
 * each epoch re-randomizes rows within their group with one single-key
   sort, rotates the batch order, and draws one size-weighted window block
-  per chunk (`fused_epoch`).
+  per chunk (`fused_epoch`); on a data-parallel mesh each rank runs its
+  share of every batch's chunks and one all-reduce merges the replicas'
+  deltas (`dp_fused_epoch`, `split_layout_for_mesh`).
 
 The chunk step is `fused_batch`: on CUDA tensors it launches the Hopper
 kernel of ``csrc/fused_chunk.cu`` (one cooperative launch per batch: the
@@ -850,6 +852,44 @@ def shuffle_keys(group, rnd_bits, gen):
     return (group.to(torch.int64) << rnd_bits) | (rnd >> (32 - rnd_bits))
 
 
+def rank_generator(gen, seed, epoch, rank):
+    """The generator of one rank's own draws in one epoch on a mesh: rank 0
+    continues ``gen`` (so a one-rank mesh draws what one device draws),
+    rank ``r > 0`` a generator on ``gen``'s device keyed by ``(seed, epoch,
+    r)`` (the JAX package's ``fold_in(key, device)``)."""
+    if rank == 0:
+        return gen
+    state = np.random.SeedSequence(
+        [int(seed), int(epoch), int(rank)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=gen.device).manual_seed(
+        int(state) & (2**63 - 1))
+
+
+def sync_group_size(sync_every, nb):
+    """The largest divisor of the batch count ``nb`` not above
+    ``sync_every`` (at least 1): the batches each replica of a data-parallel
+    epoch runs between two merges (`rankfm_tpu/ops/fused.py:1407`)."""
+    return max(d for d in range(1, max(1, min(sync_every, nb)) + 1)
+               if nb % d == 0)
+
+
+def split_layout_for_mesh(cids, ublk, iblk, n_dev):
+    """Deal each batch's ``nT`` chunks of a `make_records_grouped` visit
+    order to ``n_dev`` ranks, contiguously (``nTd = nT // n_dev`` apiece),
+    as `rankfm_tpu/ops/fused.py:1449-1469` does: device-major ``[n_dev *
+    nb, nTd]`` tensors, rank ``d``'s share of every batch in rows ``[d*nb,
+    (d+1)*nb)``."""
+    nb, nT = cids.shape
+    assert nT % n_dev == 0, (nT, n_dev)
+    nTd = nT // n_dev
+
+    def split(a):
+        return (torch.as_tensor(a).reshape(nb, n_dev, nTd).transpose(0, 1)
+                .reshape(n_dev * nb, nTd).contiguous())
+
+    return split(cids), split(ublk), split(iblk)
+
+
 def fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
                 num_users, num_items, factors, max_samples, batch_size,
                 chunk, ub, n_windows=None, x_uf=None, x_if=None,
@@ -865,13 +905,50 @@ def fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     ``x_if`` to the item table's), with ``beta`` their L2 rate. Updates the
     tables in place; returns the epoch log-likelihood (0-dim f32 on the
     device)."""
+    return dp_fused_epoch(
+        tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, mesh=None,
+        num_users=num_users, num_items=num_items, factors=factors,
+        max_samples=max_samples, batch_size=batch_size, chunk=chunk, ub=ub,
+        n_windows=n_windows, x_uf=x_uf, x_if=x_if, tab_uf=tab_uf,
+        tab_if=tab_if, beta=beta)
+
+
+def dp_fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
+                   mesh, num_users, num_items, factors, max_samples,
+                   batch_size, chunk, ub, n_windows=None, sync_every=1,
+                   x_uf=None, x_if=None, tab_uf=None, tab_if=None, beta=0.0,
+                   batch_fn=None):
+    """One data-parallel epoch of the fused engine on this rank of
+    ``mesh`` (`_dp_epoch_body`, `rankfm_tpu/ops/fused.py:1345-1446`).
+
+    Every rank holds the whole tables and the whole record array.
+    ``layout``'s ``cids``/``ublk``/``iblk`` are `split_layout_for_mesh`'s
+    device-major split; this rank visits its share of every global batch
+    (``batch_size`` rows, ``batch_size / mesh.size`` on each rank). The
+    shuffle and the batch rotation are drawn from the epoch's generator
+    and so shared by every rank; the batch seeds and the window blocks come
+    from this rank's generator (`rank_generator`). After every group of
+    `sync_group_size` batches one all-reduce sums the ranks' f32 deltas to
+    ``tab_u``, ``tab_i`` and the feature tables against the group's start; the epoch
+    log-likelihood is summed over the ranks at the end. ``mesh=None`` is
+    one device (`fused_epoch`), and so is a one-rank mesh, bit for bit.
+
+    ``batch_fn`` replaces `fused_batch` (same signature); tests count
+    visits with it."""
+    if batch_fn is None:
+        batch_fn = fused_batch
     rec, group, cids, ublk, iblk = layout
     dev = tab_u.device
+    n_dev = 1 if mesh is None else mesh.size
+    rank = 0 if mesh is None else mesh.rank
     NBLK = item_pad(num_items) // block_size(num_items)
     NG = num_user_blocks(num_users, ub) * NBLK
     rnd_bits = 31 - int(NG + 1).bit_length()
     NW = default_n_windows(NBLK) if n_windows is None else n_windows
-    nb, nT = cids.shape
+    nb = cids.shape[0] // n_dev
+    cids, ublk, iblk = (a[rank * nb:(rank + 1) * nb] for a in (cids, ublk,
+                                                               iblk))
+    nT = cids.shape[1]
     UB = user_block(num_users, ub)
     gen = epoch_generator(seed, epoch)
 
@@ -879,8 +956,9 @@ def fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     rec_s = rec[torch.sort(keys, stable=True).indices]
     r = int(torch.randint(0, nb, (), generator=gen))
     cids_b, ublk_b, iblk_b = (torch.roll(a, r, 0) for a in (cids, ublk, iblk))
-    seeds = torch.randint(0, 2**31 - 1, (nb,), generator=gen).tolist()
-    blks = draw_window_blocks(gen, (nb, nT, NW), num_items).to(dev)
+    rgen = rank_generator(gen, seed, epoch, rank)
+    seeds = torch.randint(0, 2**31 - 1, (nb,), generator=rgen).tolist()
+    blks = draw_window_blocks(rgen, (nb, nT, NW), num_items).to(dev)
     ublk_d, iblk_d = ublk_b.to(dev), iblk_b.to(dev)
     chunks = rec_s.view(-1, chunk, 2)
     idx = cids_b.to(dev).long()
@@ -888,12 +966,20 @@ def fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     # 1322-1326`)
     dreg = tuple(float(np.float32(eta) * np.float32(2.0 * np.float32(r)))
                  for r in (alpha, beta))
+    k = sync_group_size(sync_every, nb)
+    tables = [t for t in (tab_u, tab_i, tab_uf, tab_if) if t is not None]
     ll = torch.zeros((), dtype=torch.float32, device=dev)
     for b in range(nb):
-        ll = ll + fused_batch(
+        if n_dev > 1 and b % k == 0:
+            snap = [t.clone() for t in tables]
+        ll = ll + batch_fn(
             tab_u, tab_i, chunks[idx[b]].reshape(-1, 2), packed, blks[b],
             ublk_d[b], iblk_d[b], seeds[b], float(np.float32(eta)),
             dreg, factors=factors, max_samples=max_samples,
             ub_rows=UB, num_items=num_items, x_uf=x_uf, x_if=x_if,
             tab_uf=tab_uf, tab_if=tab_if)
+        if n_dev > 1 and b % k == k - 1:
+            mesh.merge_deltas(tables, snap)
+    if n_dev > 1:
+        mesh.all_reduce(ll.reshape(1), tag="epoch_ll")
     return ll

@@ -107,20 +107,17 @@ def pick_window_groups(B):
     return G
 
 
-def _apply_pair_updates(w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
-                        v_i_pos, v_i_j, x_if_pos, x_if_j, feat_rep_pos,
-                        feat_rep_j, eta, alpha, beta, x_uf_any, x_if_any):
-    """Gradients of a batch of selected (u, i, j) pairs and the per-touch
-    decayed table updates (`rankfm_tpu/ops/training.py:144-226`). ``d`` is
-    the per-row outer derivative, already masked by ``row_ok`` and scaled by
-    sample weight and the WARP multiplier. Every gradient term is formed
-    before the first table is written."""
+def feature_grads(w, d, row_ok, v_u_b, x_uf_b, v_i_pos, v_i_j, x_if_pos,
+                  x_if_j, x_uf_any, x_if_any):
+    """``{name: (gradient, touch counts)}`` of the dense feature weights
+    ``w_if``, ``v_uf``, ``v_if`` for a batch of selected pairs
+    (`rankfm_tpu/ops/training.py:144-226`). Every term is a sum over the
+    batch rows, so the data-parallel paths add them over the ranks."""
     d_col = d[:, None]
     dx_if = x_if_pos - x_if_j
     g_w_if = d @ dx_if                                          # b,bq->q
     g_v_uf = (d_col * x_uf_b).T @ (v_i_pos - v_i_j)             # b,bp,bf->pf
     g_v_if = (d_col * dx_if).T @ v_u_b                          # b,bq,bf->qf
-
     if x_if_any:
         k_w_if = row_ok.sum().expand(w["w_if"].shape)
         # v_if[q] touched when x_if[i,q] != x_if[j,q]  (`_rankfm.pyx:321-326`)
@@ -133,11 +130,24 @@ def _apply_pair_updates(w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
         k_v_uf = row_ok @ (x_uf_b != 0).to(torch.float32)
     else:
         k_v_uf = torch.zeros(w["v_uf"].shape[0], device=d.device)
+    return {"w_if": (g_w_if, k_w_if), "v_uf": (g_v_uf, k_v_uf),
+            "v_if": (g_v_if, k_v_if)}
 
-    # d_v_u = (v_i[i] - v_i[j]) + v_ifᵀ(x_if[i] - x_if[j])  (`_rankfm.pyx:292,305`)
-    g_u_rows = d_col * ((v_i_pos - v_i_j) + (feat_rep_pos - feat_rep_j))
+
+def user_row_grads(d, v_i_pos, v_i_j, feat_rep_pos, feat_rep_j):
+    """d_v_u = (v_i[i] - v_i[j]) + v_ifᵀ(x_if[i] - x_if[j]), scaled by the
+    row's ``d`` (`_rankfm.pyx:292,305`)."""
+    return d[:, None] * ((v_i_pos - v_i_j) + (feat_rep_pos - feat_rep_j))
+
+
+def table_rows(u, i, j, d, row_ok, user_rep_b, g_u_rows):
+    """The update rows of the item and user tables for
+    `scatter.apply_table_update`: ``(idx_i2 [2B], upd_i2 [2B, F+2], idx_u
+    [B], upd_u [B, F+2])``, int32 indices (-1: a row without a pair) and
+    ``[gradient | bias gradient | 1]`` rows, the positive item's then the
+    negative's."""
+    d_col = d[:, None]
     okb = row_ok > 0
-    c_a = decay_c(eta, alpha)
     ones = row_ok[:, None]
     gi = d_col * user_rep_b
     idx_i2 = torch.cat([torch.where(okb, i, -1),
@@ -146,15 +156,29 @@ def _apply_pair_updates(w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
                         torch.cat([-gi, -d_col, ones], 1)], 0)
     idx_u = torch.where(okb, u, -1).to(torch.int32)
     upd_u = torch.cat([g_u_rows, torch.zeros_like(d_col), ones], 1)
-    new_w = {
-        "w_if": _decay_apply(w["w_if"], g_w_if, k_w_if, eta, beta),
-        "v_uf": _decay_apply(w["v_uf"], g_v_uf, k_v_uf, eta, beta),
-        "v_if": _decay_apply(w["v_if"], g_v_if, k_v_if, eta, beta),
-    }
+    return idx_i2, upd_i2.contiguous(), idx_u, upd_u.contiguous()
+
+
+def _apply_pair_updates(w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
+                        v_i_pos, v_i_j, x_if_pos, x_if_j, feat_rep_pos,
+                        feat_rep_j, eta, alpha, beta, x_uf_any, x_if_any):
+    """Gradients of a batch of selected (u, i, j) pairs and the per-touch
+    decayed table updates (`rankfm_tpu/ops/training.py:144-226`). ``d`` is
+    the per-row outer derivative, already masked by ``row_ok`` and scaled by
+    sample weight and the WARP multiplier. Every gradient term is formed
+    before the first table is written."""
+    grads = feature_grads(w, d, row_ok, v_u_b, x_uf_b, v_i_pos, v_i_j,
+                          x_if_pos, x_if_j, x_uf_any, x_if_any)
+    g_u_rows = user_row_grads(d, v_i_pos, v_i_j, feat_rep_pos, feat_rep_j)
+    idx_i2, upd_i2, idx_u, upd_u = table_rows(u, i, j, d, row_ok,
+                                              user_rep_b, g_u_rows)
+    new_w = {k: _decay_apply(w[k], g, cnt, eta, beta)
+             for k, (g, cnt) in grads.items()}
+    c_a = decay_c(eta, alpha)
     new_w["v_i"], new_w["w_i"] = apply_table_update(
-        w["v_i"], w["w_i"], idx_i2, upd_i2.contiguous(), eta, c_a)
+        w["v_i"], w["w_i"], idx_i2, upd_i2, eta, c_a)
     new_w["v_u"], _ = apply_table_update(
-        w["v_u"], None, idx_u, upd_u.contiguous(), eta, c_a)
+        w["v_u"], None, idx_u, upd_u, eta, c_a)
     return new_w
 
 
@@ -184,55 +208,91 @@ def _user_and_items(w, x_uf, x_if, u, x_uf_any, x_if_any):
     return v_u_b, x_uf_b, user_rep_b, u_mat, i_mat, item_bias
 
 
+def candidate_draw_count(sampler, sample_rounds, post_reject):
+    """Candidate sets a step draws per batch: one with ``post_reject``,
+    ``max(1, sample_rounds)`` for the bitmap sampler, ``sample_rounds + 1``
+    for the binary-search sampler."""
+    if post_reject:
+        return 1
+    if sampler == "bitmap":
+        return max(1, sample_rounds)
+    return sample_rounds + 1
+
+
+def candidates(hist, u, num_items, M, draws, sampler, post_reject,
+               max_row_len):
+    """``(cands [B, M] int32, cand_ok [B, M] bool)`` from the drawn sets:
+    the first set as it is with ``post_reject``, else membership-rejected
+    by the sampler."""
+    if post_reject:
+        return draws[0], torch.ones(draws[0].shape, dtype=torch.bool,
+                                    device=u.device)
+    if sampler == "bitmap":
+        return sample_negatives_bitmap(u, hist["bitmap"], num_items, M, draws)
+    return sample_negatives(u, hist["offsets"], hist["flat"], num_items, M,
+                            draws, max_row_len)
+
+
+def warp_select(pw_mat, cands, ok_mat, M):
+    """First margin violator, else the hardest candidate: ``(sel, sampled,
+    j, pw, ok)`` per row."""
+    viol = pw_mat < MARGIN
+    any_viol = viol.any(1)
+    first_viol = viol.to(torch.uint8).argmax(1)
+    sel = torch.where(any_viol, first_viol, pw_mat.argmin(1))
+    sampled = torch.where(any_viol, first_viol + 1,
+                          torch.full_like(first_viol, M)).to(torch.int32)
+
+    def take(a):
+        return a.gather(1, sel[:, None])[:, 0]
+
+    return sel, sampled, take(cands), take(pw_mat), take(ok_mat)
+
+
+def reselect_members(pairwise, cands, cand_ok, picked, member_of_j, M):
+    """Post-hoc rejection: test only the selected negative; mask a member
+    slot and select again (second members are ~(h/I)^2-rare: the row is
+    dropped). Returns `warp_select`'s tuple."""
+    slots = torch.arange(M, device=pairwise.device)[None, :]
+    sel, sampled, j, pw, ok_sel = picked
+    for _ in range(2):
+        is_mem = member_of_j(j)
+        pairwise = torch.where(is_mem[:, None] & (slots == sel[:, None]),
+                               float("inf"), pairwise)
+        sel, sampled, j, pw, ok_sel = warp_select(pairwise, cands, cand_ok, M)
+    return sel, sampled, j, pw, ok_sel & ~member_of_j(j)
+
+
+def candidate_terms(row_ok, sw, sampled, pw, num_items, log_I):
+    """``(d, ll)`` of the candidate step: the per-row outer derivative and
+    the batch log-likelihood, non-finite utilities read as 0."""
+    multiplier = _rank_multiplier(num_items, sampled, log_I)
+    pw_safe = torch.where(torch.isfinite(pw), pw, 0.0)
+    d = row_ok * sw * multiplier * torch.sigmoid(-pw_safe)
+    ll = (row_ok * torch.nn.functional.logsigmoid(pw_safe)).sum()
+    return d, ll
+
+
 def make_train_step(num_items, max_samples, x_uf_any, x_if_any,
                     sample_rounds=8, sampler="bsearch", post_reject=False,
                     max_row_len=None):
     """The candidate step (`rankfm_tpu/ops/training.py:229-392`).
 
     ``hist = {'offsets', 'flat', 'bitmap'}``; only the arrays the sampler
-    reads are touched. ``draws`` are the candidate sets ``[R, B, M]`` int32:
-    one with ``post_reject``, ``max(1, sample_rounds)`` for the bitmap
-    sampler, ``sample_rounds + 1`` for the binary-search sampler."""
+    reads are touched. ``draws`` are the candidate sets ``[R, B, M]`` int32
+    (`candidate_draw_count`)."""
     M = max_samples
     log_I = math.log(num_items) if num_items > 1 else 1.0
     post_reject = post_reject and M > 1
-    if post_reject:
-        n_draws = 1
-    elif sampler == "bitmap":
-        n_draws = max(1, sample_rounds)
-    else:
-        n_draws = sample_rounds + 1
+    n_draws = candidate_draw_count(sampler, sample_rounds, post_reject)
 
     def draw(gen, B):
         return draw_candidates(gen, n_draws, B, M, num_items)
 
-    def select(pw_mat, cands, ok_mat):
-        """First margin violator, else the hardest candidate: ``(sel,
-        sampled, j, pw, ok)`` per row."""
-        viol = pw_mat < MARGIN
-        any_viol = viol.any(1)
-        first_viol = viol.to(torch.uint8).argmax(1)
-        sel = torch.where(any_viol, first_viol, pw_mat.argmin(1))
-        sampled = torch.where(any_viol, first_viol + 1,
-                              torch.full_like(first_viol, M)).to(torch.int32)
-
-        def take(a):
-            return a.gather(1, sel[:, None])[:, 0]
-
-        return sel, sampled, take(cands), take(pw_mat), take(ok_mat)
-
     def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta, draws):
         B = u.shape[0]
-        if post_reject:
-            cands = draws[0]
-            cand_ok = torch.ones((B, M), dtype=torch.bool, device=u.device)
-        elif sampler == "bitmap":
-            cands, cand_ok = sample_negatives_bitmap(
-                u, hist["bitmap"], num_items, M, draws)
-        else:
-            cands, cand_ok = sample_negatives(
-                u, hist["offsets"], hist["flat"], num_items, M, draws,
-                max_row_len)
+        cands, cand_ok = candidates(hist, u, num_items, M, draws, sampler,
+                                    post_reject, max_row_len)
         cands_l = cands.long()
 
         v_u_b, x_uf_b, user_rep_b, u_mat, i_mat, item_bias = _user_and_items(
@@ -253,7 +313,7 @@ def make_train_step(num_items, max_samples, x_uf_any, x_if_any,
             ut_ui = (u_mat * i_mat[i]).sum(1) + item_bias[i]
 
         pairwise = torch.where(cand_ok, ut_ui[:, None] - ut_uj, float("inf"))
-        sel, sampled, j, pw, ok_sel = select(pairwise, cands, cand_ok)
+        picked = warp_select(pairwise, cands, cand_ok, M)
         if post_reject:
             if sampler == "bitmap":
                 def member_of_j(jj):
@@ -262,22 +322,11 @@ def make_train_step(num_items, max_samples, x_uf_any, x_if_any,
                 def member_of_j(jj):
                     return csr_member(hist["flat"], hist["offsets"], u, jj,
                                       max_row_len)
-            # test only the selected negative; mask a member slot and
-            # re-select (second members are ~(h/I)^2-rare: drop the row)
-            slots = torch.arange(M, device=u.device)[None, :]
-            for _ in range(2):
-                is_mem = member_of_j(j)
-                pairwise = torch.where(
-                    is_mem[:, None] & (slots == sel[:, None]), float("inf"),
-                    pairwise)
-                sel, sampled, j, pw, ok_sel = select(pairwise, cands, cand_ok)
-            ok_sel = ok_sel & ~member_of_j(j)
+            picked = reselect_members(pairwise, cands, cand_ok, picked,
+                                      member_of_j, M)
+        _, sampled, j, pw, ok_sel = picked
         row_ok = (valid & ok_sel & torch.isfinite(pw)).to(torch.float32)
-
-        multiplier = _rank_multiplier(num_items, sampled, log_I)
-        pw_safe = torch.where(torch.isfinite(pw), pw, 0.0)
-        d = row_ok * sw * multiplier * torch.sigmoid(-pw_safe)
-        ll = (row_ok * torch.nn.functional.logsigmoid(pw_safe)).sum()
+        d, ll = candidate_terms(row_ok, sw, sampled, pw, num_items, log_I)
 
         j_l = j.long()
         v_i_pos = w["v_i"][i]
@@ -295,6 +344,37 @@ def make_train_step(num_items, max_samples, x_uf_any, x_if_any,
     return TrainStep(draw, apply)
 
 
+def window_nonmember(rows, BLK):
+    """``[G, Bg, BLK]`` bool: slot ``L`` of each row's window is not in its
+    history. ``rows [G, Bg, LW]`` are the window block's ``LW = BLK/16``
+    pack words of each row (`fused.pack_history`), tiled so that slot ``L``
+    reads bit ``L // LW`` of word ``L % LW``."""
+    lg_lw = (BLK // fused_mod.BITS_PER_LANE).bit_length() - 1
+    col = torch.arange(BLK, device=rows.device)[None, None, :]
+    bits = rows.repeat(1, 1, fused_mod.BITS_PER_LANE)                # [G,Bg,BLK]
+    return ((bits >> (col >> lg_lw).to(bits.dtype)) & 1) == 0
+
+
+def window_pairwise(u_mat, ut_ui, win_mat, win_bias):
+    """``ut_ui - ut_uj`` of every row against its group's window slots:
+    ``u_mat [B, K]``, ``ut_ui [B]``, ``win_mat [G, BLK, K]``, ``win_bias
+    [G, BLK]`` -> ``[G, Bg, BLK]``."""
+    G = win_mat.shape[0]
+    scores = (torch.bmm(u_mat.reshape(G, -1, u_mat.shape[1]),
+                        win_mat.transpose(1, 2))
+              + win_bias[:, None, :])
+    return ut_ui.reshape(G, -1)[:, :, None] - scores
+
+
+def window_terms(row_ok, sw, sampled, pw_sel, num_items, log_I):
+    """``(d, ll)`` of the window step at the selected negatives' exact
+    utilities ``pw_sel``."""
+    multiplier = _rank_multiplier(num_items, sampled, log_I)
+    d = row_ok * sw * multiplier * torch.sigmoid(-pw_sel)
+    ll = (row_ok * torch.nn.functional.logsigmoid(pw_sel)).sum()
+    return d, ll
+
+
 def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
     """The window step (`rankfm_tpu/ops/training.py:395-510`). ``hist`` is
     the blocked 16-bit history pack (`fused.pack_history`); ``draws`` are
@@ -304,7 +384,6 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
     BLK = fused_mod.block_size(num_items)
     I_pad = fused_mod.item_pad(num_items)
     LW = BLK // fused_mod.BITS_PER_LANE
-    lg_lw = LW.bit_length() - 1
 
     def draw(gen, B):
         G = pick_window_groups(B)
@@ -321,13 +400,10 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
         dev = u.device
         blk_l = blkg.long()
 
-        # membership bits of each group's window: the LW pack words of the
-        # window block, tiled so that slot L reads bit L // LW of word L % LW
+        # membership bits of each group's window
         lanes = blk_l[:, None] * LW + torch.arange(LW, device=dev)[None, :]
-        rows = packed_hist[u.reshape(G, Bg, 1), lanes[:, None, :]]  # [G,Bg,LW]
-        col = torch.arange(BLK, device=dev)[None, None, :]
-        bits = rows.repeat(1, 1, fused_mod.BITS_PER_LANE)             # [G,Bg,BLK]
-        nonmem = ((bits >> (col >> lg_lw).to(bits.dtype)) & 1) == 0
+        nonmem = window_nonmember(
+            packed_hist[u.reshape(G, Bg, 1), lanes[:, None, :]], BLK)
 
         v_u_b, x_uf_b, user_rep_b, u_mat, i_mat, item_bias = _user_and_items(
             w, x_uf, x_if, u, x_uf_any, x_if_any)
@@ -337,9 +413,6 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
             i_mat, (0, 0, 0, I_pad - i_mat.shape[0]))
         bias_pad = torch.nn.functional.pad(
             item_bias, (0, I_pad - item_bias.shape[0]))
-        scores_win = (torch.bmm(u_mat.reshape(G, Bg, -1),
-                                i_pad_mat[slots].transpose(1, 2))
-                      + bias_pad[slots][:, None, :])                 # [G,Bg,BLK]
         v_i_pos = w["v_i"][i]
         x_if_pos = x_if[i]
         feat_rep_pos = x_if_pos @ w["v_if"]
@@ -348,7 +421,7 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
         else:
             i_rows = v_i_pos
         ut_ui = (u_mat * i_rows).sum(1) + item_bias[i]
-        pw = ut_ui.reshape(G, Bg)[:, :, None] - scores_win
+        pw = window_pairwise(u_mat, ut_ui, i_pad_mat[slots], bias_pad[slots])
 
         jloc, sampled, has_j = window_warp_select(pw, nonmem, u01, r1, M)
         j = (blk_l[:, None] * BLK + jloc).reshape(B)
@@ -364,11 +437,8 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
         else:
             j_rows = v_i_j
         ut_uj = (u_mat * j_rows).sum(1) + item_bias[j]
-        pw_sel = ut_ui - ut_uj
-
-        multiplier = _rank_multiplier(num_items, sampled, log_I)
-        d = row_ok * sw * multiplier * torch.sigmoid(-pw_sel)
-        ll = (row_ok * torch.nn.functional.logsigmoid(pw_sel)).sum()
+        d, ll = window_terms(row_ok, sw, sampled, ut_ui - ut_uj, num_items,
+                             log_I)
         new_w = _apply_pair_updates(
             w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
             v_i_pos, v_i_j, x_if_pos, x_if_j, feat_rep_pos, feat_rep_j,

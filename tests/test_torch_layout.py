@@ -242,10 +242,9 @@ def test_featured_plans_are_fused():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 4: Parallel"),
     (dict(num_items=9500, train_step="mixed", tail_windows=8), "tail_windows"),
     (dict(shuffle_layouts=4), "shuffle_layouts"),
-], ids=["mesh", "wide-tail", "shuffle-layouts"])
+], ids=["wide-tail", "shuffle-layouts"])
 def test_plans_outside_the_slice_raise(kw, item):
     spec = dict(ML1M, on_gpu=True)
     spec.update(kw)

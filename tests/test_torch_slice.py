@@ -213,7 +213,10 @@ def test_port_imports_no_jax():
             "rankfm_tpu_torch.ops.training, rankfm_tpu_torch.ops.scatter, "
             "rankfm_tpu_torch.ops.negatives, rankfm_tpu_torch.native, "
             "rankfm_tpu_torch.utils.checkpoint, rankfm_tpu_torch.baselines, "
-            "rankfm_tpu_torch.utils.observe, rankfm_tpu_torch.utils.data; "
+            "rankfm_tpu_torch.utils.observe, rankfm_tpu_torch.utils.data, "
+            "rankfm_tpu_torch.parallel.mesh, rankfm_tpu_torch.parallel.train, "
+            "rankfm_tpu_torch.parallel.fused, rankfm_tpu_torch.parallel.tp, "
+            "rankfm_tpu_torch.parallel.retrieval; "
             "rankfm_tpu_torch.native.get_lib(); "
             "bad = [m for m in set(sys.modules) - before if m == 'jax' or "
             "m.startswith(('jax.', 'rankfm_tpu.')) or m == 'rankfm_tpu']; "

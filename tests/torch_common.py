@@ -3,21 +3,27 @@ the C++ sequential oracle's quality band with its data (600 users x 2,500
 items, 10 epochs; +-0.05 hit rate and DCG, +-0.03 precision and recall,
 the band of
 `tests/test_torch_slice.py::test_fit_quality_matches_sequential_oracle`);
-and, for the chunk step against the JAX package's Pallas kernel, the
-interpret-mode fixture and the forced-negative batch.
+for the chunk step against the JAX package's Pallas kernel, the
+interpret-mode fixture and the forced-negative batch; and `run_ring`, which
+runs a function of this module on several gloo ranks.
+
+This module imports no JAX at its top (the JAX pieces import it where they
+are used): the ranks of `run_ring` import it, and they run the port alone.
 """
+
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from rankfm_tpu import RankFM as JaxRankFM
-from rankfm_tpu import native
-from rankfm_tpu.ops import fused as jfused
-
-from parity_common import make_latent_dataset, oracle_metrics
+REPO = Path(__file__).resolve().parents[1]
 
 METRICS = ("hit_rate", "reciprocal_rank", "discounted_cumulative_gain",
            "precision", "recall")
@@ -43,6 +49,10 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def data_and_oracle():
     """``(train, test, oracle metrics)`` of the latent 600 x 2,500 log."""
+    from rankfm_tpu import RankFM as JaxRankFM
+    from rankfm_tpu import native
+    from parity_common import make_latent_dataset, oracle_metrics
+
     if native.get_oracle() is None:
         pytest.skip("no C++ toolchain for the sequential oracle")
     rng = np.random.default_rng(1492)
@@ -62,6 +72,9 @@ def assert_in_band(got, want):
 @pytest.fixture
 def pallas_interpret(monkeypatch):
     """Run Pallas TPU kernels in interpret mode on the CPU."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
     orig = pl.pallas_call
 
     def interpret_call(*args, **kwargs):
@@ -90,6 +103,8 @@ def forced_case(rng, full_history=False):
     """Histories holding all items but one per block (or all of them), a
     batch of nT chunks of C rows (8 guard rows each) and initial tables:
     every row's negative is forced, whatever the random stream."""
+    from rankfm_tpu.ops import fused as jfused
+
     U, I, F, UB, C, NT = FORCED_SHAPE
     BLK = jfused.block_size(I)
     nblk = jfused.item_pad(I) // BLK
@@ -121,3 +136,535 @@ def forced_case(rng, full_history=False):
     v_u = rng.normal(0, 0.1, (U, F)).astype(np.float32)
     v_i = rng.normal(0, 0.1, (I, F)).astype(np.float32)
     return packed, rec, blk, ublk, iblk, (w_i, v_u, v_i)
+
+
+# ---------------------------------------------------------------------------
+# several ranks on the CPU (gloo)
+# ---------------------------------------------------------------------------
+
+RING_TIMEOUT = 240
+
+
+def _ring_logs(work, world):
+    out = []
+    for r in range(world):
+        log = Path(work) / f"log{r}.txt"
+        out.append(f"--- rank {r} ---\n"
+                   + (log.read_text() if log.exists() else "(no output)"))
+    return "\n".join(out)
+
+
+def run_ring(body, world, *args, timeout=RING_TIMEOUT):
+    """Run ``body(mesh_args..)``, the function of this module named
+    ``body``, as ``body(rank, world, *args)`` in ``world`` fresh processes
+    joined into one gloo process group (``file://`` rendezvous in a private
+    directory, so concurrent test workers never share a port), one torch
+    thread each. Returns the ranks' results in rank order.
+
+    Fails when a rank fails (the others are killed at once) or when the
+    ring outlives ``timeout`` seconds; either way after draining every
+    rank's output into the message."""
+    work = tempfile.mkdtemp(prefix="ring-")
+    with open(Path(work) / "args.pkl", "wb") as f:
+        pickle.dump(args, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(REPO), str(REPO / "tests")]))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = []
+    for r in range(world):
+        with open(Path(work) / f"log{r}.txt", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, body, str(r), str(world), work],
+                stdout=log, stderr=subprocess.STDOUT, cwd=REPO, env=env))
+    deadline = time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.time() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rc != 0 for rc in rcs):
+        why = ("timed out after %d s" % timeout if time.time() > deadline
+               else f"exit codes {rcs}")
+        pytest.fail(f"ring {body} on {world} ranks {why}:\n"
+                    + _ring_logs(work, world))
+    out = []
+    for r in range(world):
+        with open(Path(work) / f"result{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _rank_main(body, rank, world, work):
+    from rankfm_tpu_torch.parallel import init_distributed
+
+    torch.set_num_threads(1)
+    init_distributed(init_method=f"file://{work}/rendezvous",
+                     world_size=world, rank=rank, backend="gloo")
+    with open(Path(work) / "args.pkl", "rb") as f:
+        args = pickle.load(f)
+    out = globals()[body](rank, world, *args)
+    with open(Path(work) / f"result{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+
+# ---------------------------------------------------------------------------
+# rank bodies (tests/test_torch_parallel.py, tests/test_torch_tp.py)
+# ---------------------------------------------------------------------------
+
+def counting_batch_fn(chunk, num_users, num_items):
+    """Stand-in for `fused_batch` (same signature): adds each VALID record's
+    visit to column 0 of its user and item rows (the guard row takes the
+    invalid ones), one visit per valid row to cell [0, 0] of the feature
+    tables (two to ``tab_if``'s), and returns the count of valid rows as
+    the log-likelihood. Additive, so a delta merge must make the epoch
+    totals exact whatever the split and the sync cadence."""
+    from rankfm_tpu_torch.ops import fused
+
+    BLK = fused.block_size(num_items)
+
+    def fn(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg, *,
+           factors, max_samples, ub_rows, num_items, x_uf=None, x_if=None,
+           tab_uf=None, tab_if=None):
+        u_loc, i1, v = fused.unpack_record_cols(rec[:, 0])
+        valid = v.to(torch.float32)
+        u_abs = ublk.long().repeat_interleave(chunk) * ub_rows + u_loc
+        i_blk = iblk.long().repeat_interleave(chunk) * BLK
+        i_abs = torch.where(i1 > 0, i_blk + i1 - 1, tab_i.shape[0] - 1)
+        tab_u[:, 0].index_add_(0, u_abs.long(), valid)
+        tab_i[:, 0].index_add_(0, i_abs.long(), valid)
+        if tab_uf is not None:
+            tab_uf[0, 0] += valid.sum()
+        if tab_if is not None:
+            tab_if[0, 0] += 2.0 * valid.sum()
+        return valid.sum()
+
+    return fn
+
+
+def counting_step():
+    """Stand-in for an XLA `TrainStep`: one uniform per row drawn, then each
+    valid row's visit added to column 0 of its user and item rows; the
+    log-likelihood is the count of valid rows."""
+    from rankfm_tpu_torch.ops.training import TrainStep
+
+    def draw(gen, B):
+        return torch.rand(B, generator=gen)
+
+    def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta, draws):
+        v = valid.to(torch.float32)
+        w["v_u"][:, 0].index_add_(0, u, v)
+        w["v_i"][:, 0].index_add_(0, i, v)
+        return w, v.sum()
+
+    return TrainStep(draw, apply)
+
+
+def count_layout(rng, U, I, n, bs, n_dev):
+    """``(u, i, layout with the split chunk order, chunk)`` of ``n`` random
+    interactions at global batch ``bs``."""
+    from rankfm_tpu_torch.ops import fused
+
+    u = rng.integers(0, U, n).astype(np.int32)
+    i = rng.integers(0, I, n).astype(np.int32)
+    chunk = fused.pick_chunk(bs // n_dev, U, I, n)
+    rec, group, cids, ublk, iblk = fused.make_records_grouped(
+        u, i, np.ones(n, np.float32), U, I, bs, chunk)
+    layout = (torch.from_numpy(rec), torch.from_numpy(group),
+              *fused.split_layout_for_mesh(cids, ublk, iblk, n_dev))
+    return u, i, layout, chunk
+
+
+def fused_counts(mesh, U, I, n, bs, sync_every, epochs, features, seed):
+    """Column 0 of the merged tables and the ll after each epoch of
+    `make_fused_dp_epoch_fn` with `counting_batch_fn`, from zero tables."""
+    from rankfm_tpu_torch.ops import fused
+    from rankfm_tpu_torch.parallel.fused import make_fused_dp_epoch_fn
+
+    rng = np.random.default_rng(seed)
+    u, i, layout, chunk = count_layout(rng, U, I, n, bs, mesh.size)
+    fn = make_fused_dp_epoch_fn(mesh, U, I, 8, 1, bs, chunk,
+                                sync_every=sync_every,
+                                batch_fn=counting_batch_fn(chunk, U, I))
+    packed = torch.zeros((U, fused.item_pad(I) // 16), dtype=torch.int32)
+    out = []
+    for epoch in epochs:
+        tab_u = torch.zeros((fused.user_pad(U), 10))
+        tab_i = torch.zeros((fused.item_pad(I), 10))
+        feats = {}
+        if features:
+            feats = dict(x_uf=torch.zeros((fused.user_pad(U), 3)),
+                         x_if=torch.zeros((fused.item_pad(I), 2)),
+                         tab_uf=torch.zeros((3, 10)),
+                         tab_if=torch.zeros((2, 10)), beta=0.05)
+        ll = fn(tab_u, tab_i, packed, layout, 0.1, 0.01, 1492, epoch,
+                **feats)
+        out.append(dict(u=u, i=i, tab_u=tab_u[:, 0].numpy().copy(),
+                        tab_i=tab_i[:, 0].numpy().copy(), ll=float(ll),
+                        uf=float(feats["tab_uf"][0, 0]) if features else 0.0,
+                        if_=float(feats["tab_if"][0, 0]) if features else 0.0))
+    return out
+
+
+def xla_counts(mesh, U, I, n, bs, sync_every, seed):
+    """Column 0 of the merged tables and the ll of one `dp_epoch_body`
+    epoch of `counting_step`, from zero tables."""
+    from rankfm_tpu_torch.parallel.train import dp_epoch_body
+
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy(rng.integers(0, U, n))
+    i = torch.from_numpy(rng.integers(0, I, n))
+    n_pad = -(-n // bs) * bs
+    cols = [torch.zeros(n_pad, dtype=torch.int64) for _ in range(2)]
+    cols[0][:n], cols[1][:n] = u, i
+    sw = torch.zeros(n_pad)
+    w = {"v_u": torch.zeros((U, 4)), "v_i": torch.zeros((I, 4))}
+    fn = dp_epoch_body(counting_step(), bs, mesh, sync_every)
+    mesh.trace = []
+    w, ll = fn(w, None, None, None, cols[0], cols[1], sw, n, 0.1, 0.01, 0.1,
+               7, 0)
+    stats = mesh.collective_stats()
+    mesh.trace = None
+    return dict(u=u.numpy(), i=i.numpy(), v_u=w["v_u"][:, 0].numpy().copy(),
+                v_i=w["v_i"][:, 0].numpy().copy(), ll=float(ll),
+                merges=stats[("delta_merge", "world")][:2],
+                ll_reduces=stats[("epoch_ll", "world")][0])
+
+
+def xla_problem(seed, U=200, I=300, n=3000, F=8):
+    """A random history, its CSR and blocked pack, padded columns and
+    initial weights, for the XLA epochs: ``(cols, w, x_uf, x_if, hist,
+    packed, mrl, n)``, all numpy."""
+    from rankfm_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(seed)
+    pairs = np.unique(np.stack([rng.integers(0, U, n),
+                                rng.integers(0, I, n)], 1), axis=0)
+    rng.shuffle(pairs)
+    n = len(pairs)
+    counts = np.bincount(pairs[:, 0], minlength=U)
+    offsets = np.zeros(U + 1, np.int32)
+    offsets[1:] = np.cumsum(counts)
+    flat = pairs[np.lexsort((pairs[:, 1], pairs[:, 0])), 1].astype(np.int32)
+    w = {"w_i": rng.normal(0, 0.05, I).astype(np.float32),
+         "w_if": rng.normal(0, 0.05, 2).astype(np.float32),
+         "v_u": rng.normal(0, 0.1, (U, F)).astype(np.float32),
+         "v_i": rng.normal(0, 0.1, (I, F)).astype(np.float32),
+         "v_uf": rng.normal(0, 0.05, (3, F)).astype(np.float32),
+         "v_if": rng.normal(0, 0.05, (2, F)).astype(np.float32)}
+    x_uf = (rng.random((U, 3)) < 0.3).astype(np.float32)
+    x_if = (rng.random((I, 2)) < 0.3).astype(np.float32)
+    return dict(pairs=pairs, w=w, x_uf=x_uf, x_if=x_if, offsets=offsets,
+                flat=flat, packed=fused.pack_history(offsets, flat, U, I),
+                mrl=int(counts.max()), n=n, U=U, I=I)
+
+
+def xla_columns(prob, bs):
+    """Padded ``(u, i, sw)`` tensors of `xla_problem`'s interactions."""
+    n = prob["n"]
+    n_pad = -(-n // bs) * bs
+    u = torch.zeros(n_pad, dtype=torch.int64)
+    i = torch.zeros(n_pad, dtype=torch.int64)
+    sw = torch.zeros(n_pad)
+    u[:n] = torch.from_numpy(prob["pairs"][:, 0])
+    i[:n] = torch.from_numpy(prob["pairs"][:, 1])
+    sw[:n] = 1.0
+    return u, i, sw
+
+
+def xla_epochs(mesh, kind, prob, bs, epochs, sync_every=1, features=False):
+    """The weights (numpy) and lls after ``epochs`` data-parallel XLA epochs
+    of ``kind`` ('window' / 'candidate') on `xla_problem` ``prob``."""
+    from rankfm_tpu_torch.parallel.train import make_sharded_epoch_fn
+
+    I = prob["I"]
+    w = {k: torch.from_numpy(v.copy()) for k, v in prob["w"].items()}
+    if features:
+        x_uf, x_if = (torch.from_numpy(prob[k]) for k in ("x_uf", "x_if"))
+    else:
+        x_uf = torch.zeros((prob["U"], 3))
+        x_if = torch.zeros((I, 2))
+    fn = make_sharded_epoch_fn(mesh, I, 4, features, features, bs,
+                               sample_rounds=3, sampler="bsearch",
+                               step_kind=kind, dp=True,
+                               dp_sync_every=sync_every)
+    hist = (torch.from_numpy(prob["packed"]) if kind == "window" else
+            {"offsets": torch.from_numpy(prob["offsets"]),
+             "flat": torch.from_numpy(prob["flat"]),
+             "bitmap": torch.zeros((1, 1), dtype=torch.int32)})
+    u, i, sw = xla_columns(prob, bs)
+    lls = []
+    for epoch in epochs:
+        w, ll = fn(w, x_uf, x_if, hist, u, i, sw, prob["n"], 0.1, 0.01, 0.1,
+                   1492, epoch)
+        lls.append(float(ll))
+    return {k: v.numpy().copy() for k, v in w.items()}, lls
+
+
+def two_group_frame(seed, n_users=48, frac=0.75):
+    """The two-group log of `tests/test_sharding.py::
+    test_model_end_to_end_on_mesh`: ``(train, test)`` frames."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for u in range(n_users):
+        g = u % 2
+        for it in rng.choice(np.arange(g * 16, (g + 1) * 16), 8,
+                             replace=False):
+            rows.append((u, it))
+    df = pd.DataFrame(rows, columns=["user_id", "item_id"])
+    train = df.sample(frac=frac, random_state=0)
+    return train, df.drop(train.index)
+
+
+E2E_CFG = dict(factors=4, loss="warp", max_samples=4, learning_rate=0.1,
+               batch_size=256)
+# forced negatives on two ranks: 32 users holding 7 of 8 items (one
+# 128-slot window whose pad slots are members: every negative is forced),
+# user blocks of 16 users, so the 224 rows make one batch of two chunks,
+# each one whole (user block, item block) group: whatever the shuffle, each
+# rank's chunk holds the same rows
+FORCED_DP = dict(U=32, I=8, F=6, ub=16, batch_size=256, chunk=128,
+                 eta=0.2, alpha=0.01, epochs=3)
+
+
+def forced_dp_problem():
+    """``(pairs, packed, layout, (w_i, v_u, v_i))`` of `FORCED_DP`, numpy;
+    the layout is `make_records_grouped`'s (one batch of two chunks)."""
+    from rankfm_tpu_torch.ops import fused
+
+    c = FORCED_DP
+    users = np.repeat(np.arange(c["U"]), 7)
+    items = np.concatenate([np.delete(np.arange(c["I"]), u % c["I"])
+                            for u in range(c["U"])])
+    pairs = np.stack([users, items], 1).astype(np.int32)
+    offsets = np.zeros(c["U"] + 1, np.int32)
+    offsets[1:] = np.cumsum(np.bincount(users, minlength=c["U"]))
+    packed = fused.pack_history(offsets, items.astype(np.int32), c["U"],
+                                c["I"])
+    layout = fused.make_records_grouped(
+        users, items, np.ones(len(users), np.float32), c["U"], c["I"],
+        c["batch_size"], c["chunk"], ub=c["ub"])
+    assert layout[2].shape == (1, 2), layout[2].shape
+    rng = np.random.default_rng(3)
+    w = (rng.normal(0, 0.05, c["I"]).astype(np.float32),
+         rng.normal(0, 0.1, (c["U"], c["F"])).astype(np.float32),
+         rng.normal(0, 0.1, (c["I"], c["F"])).astype(np.float32))
+    return pairs, packed, layout, w
+
+
+def forced_dp_epochs(mesh, M):
+    """``(tab_u, tab_i, lls)`` after `FORCED_DP`'s epochs of
+    `dp_fused_epoch` on this rank, from `forced_dp_problem`."""
+    from rankfm_tpu_torch.ops import fused
+
+    c = FORCED_DP
+    _, packed, layout, (w_i, v_u, v_i) = forced_dp_problem()
+    rec, group, cids, ublk, iblk = (torch.from_numpy(a) for a in layout)
+    split = (rec, group) + fused.split_layout_for_mesh(cids, ublk, iblk,
+                                                       mesh.size)
+    tab_u, tab_i = fused.extend_tables(
+        torch.from_numpy(w_i), torch.from_numpy(v_u), torch.from_numpy(v_i),
+        fused.user_pad(c["U"], c["ub"]), fused.item_pad(c["I"]))
+    lls = []
+    for epoch in range(c["epochs"]):
+        lls.append(float(fused.dp_fused_epoch(
+            tab_u, tab_i, torch.from_numpy(packed), split, c["eta"],
+            c["alpha"], 1492, epoch, mesh=mesh, num_users=c["U"],
+            num_items=c["I"], factors=c["F"], max_samples=M,
+            batch_size=c["batch_size"], chunk=c["chunk"], ub=c["ub"])))
+    return tab_u.numpy(), tab_i.numpy(), lls
+
+
+def ring_dp(rank, world):
+    """Every data-parallel check of tests/test_torch_parallel.py on this
+    rank of a ``(world, 1)`` mesh."""
+    from rankfm_tpu_torch import RankFM, evaluation
+    from rankfm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(data=world, device="cpu")
+    out = {"rank": mesh.rank, "shape": mesh.shape}
+    for k in (1, 4):
+        out[f"fused_counts_sync{k}"] = fused_counts(
+            mesh, 500, 300, 3000, 1024, k, [0], False, 3)
+    out["fused_counts_epochs"] = fused_counts(mesh, 64, 96, 800, 1024, 1,
+                                              [0, 1, 7], False, 5)
+    out["fused_counts_features"] = fused_counts(mesh, 200, 150, 1500, 1024,
+                                                1, [0], True, 7)
+    for k in (1, 3, 1000):
+        out[f"xla_counts_sync{k}"] = xla_counts(mesh, 50, 70, 1000, 64, k, 9)
+    prob = xla_problem(11)
+    for kind in ("window", "candidate"):
+        out[f"xla_{kind}"] = xla_epochs(mesh, kind, prob, 256, [0, 1, 2])
+    out["xla_window_sync1000"] = xla_epochs(mesh, "window", prob, 256, [0],
+                                            sync_every=1000)
+
+    train, test = two_group_frame(5)
+    m = RankFM(**E2E_CFG, mesh=mesh).fit(train, epochs=8)
+    recs = m.recommend(np.arange(48), n_items=4, filter_previous=True)
+    out["e2e"] = dict(plan=m.last_fit_plan_, predict=m.predict(train.head(10)),
+                      recs=recs.values, hr=evaluation.hit_rate(m, test, k=8),
+                      weights=m._weights)
+    for M in (1, 5):
+        out[f"forced_M{M}"] = forced_dp_epochs(mesh, M)
+    return out
+
+
+def tp_inputs(prob, features):
+    """``(w, x_uf, x_if)`` tensors of `xla_problem` ``prob``, the feature
+    matrices zero without ``features``."""
+    w = {k: torch.from_numpy(v.copy()) for k, v in prob["w"].items()}
+    if features:
+        return (w, torch.from_numpy(prob["x_uf"]),
+                torch.from_numpy(prob["x_if"]))
+    return w, torch.zeros((prob["U"], 3)), torch.zeros((prob["I"], 2))
+
+
+def tp_epochs(mesh, prob, kind, bs, epochs, features=False,
+              post_reject=False):
+    """The whole weights (numpy), the lls and the largest entry of the
+    shards' pad rows after TP epochs of ``kind`` on `xla_problem`
+    ``prob``."""
+    from rankfm_tpu_torch.parallel import tp
+
+    U, I = prob["U"], prob["I"]
+    w, x_uf, x_if = tp_inputs(prob, features)
+    w_tp, xu_tp, xi_tp = tp.pad_and_place(mesh, w, x_uf, x_if)
+    if kind == "window":
+        hist = {"packed": tp.pad_packed_hist(
+            mesh, torch.from_numpy(prob["packed"]), U)}
+    else:
+        hist = {"offsets": torch.from_numpy(prob["offsets"]),
+                "flat": torch.from_numpy(prob["flat"])}
+    fn = tp.tp_epoch_fn(mesh, I, 4, features, features, bs, sample_rounds=3,
+                        max_row_len=prob["mrl"], post_reject=post_reject,
+                        step_kind=kind)
+    u, i, sw = xla_columns(prob, bs)
+    lls = []
+    for epoch in epochs:
+        w_tp, ll = fn(w_tp, xu_tp, xi_tp, hist, u, i, sw, prob["n"], 0.1,
+                      0.01, 0.1, 1492, epoch)
+        lls.append(float(ll))
+    R_i, R_u = w_tp["v_i"].shape[0], w_tp["v_u"].shape[0]
+    lo_i, lo_u = mesh.model_rank * R_i, mesh.model_rank * R_u
+    pad = max(float(w_tp["v_i"][max(0, I - lo_i):].abs().sum()),
+              float(w_tp["w_i"][max(0, I - lo_i):].abs().sum()),
+              float(w_tp["v_u"][max(0, U - lo_u):].abs().sum()))
+    full = tp.extract(mesh, w_tp, U, I)
+    return {k: v.numpy().copy() for k, v in full.items()}, lls, pad
+
+
+TP_CASES = {
+    "candidate": dict(kind="candidate", bs=256),
+    "candidate-post-reject": dict(kind="candidate", bs=256,
+                                  post_reject=True),
+    "candidate-features": dict(kind="candidate", bs=256, features=True),
+    "window": dict(kind="window", bs=256),
+    "window-split": dict(kind="window", bs=512),
+    "window-features": dict(kind="window", bs=256, features=True),
+}
+
+
+def sharded_lists(mesh, prob, users, n, filtered, sharded):
+    """`retrieval.sharded_topk`'s top-``n`` items of ``users`` from
+    `xla_problem` ``prob``'s weights (with its features), the tables whole
+    on every rank or (``sharded``) this rank's `tp.pad_and_place` shards."""
+    from rankfm_tpu_torch.parallel import retrieval, tp
+    from rankfm_tpu_torch.utils.data import csr_row_pairs
+
+    w, x_uf, x_if = tp_inputs(prob, True)
+    if sharded:
+        w = tp.pad_and_place(mesh, w, x_uf, x_if)[0]
+    rows = cols = torch.zeros(0, dtype=torch.int64)
+    if filtered:
+        r, c = csr_row_pairs(prob["offsets"], prob["flat"], users)
+        rows, cols = torch.from_numpy(r.astype(np.int64)), \
+            torch.from_numpy(c.astype(np.int64))
+    i_mat, ib = retrieval.item_operands(mesh, w, x_if, prob["I"], sharded)
+    u_mat = retrieval.user_operands(mesh, w, x_uf, torch.from_numpy(users),
+                                    sharded)
+    idx, vals = retrieval.sharded_topk(mesh, u_mat, i_mat, ib, rows, cols, n)
+    return idx.numpy(), vals.numpy()
+
+
+def ring_tp(rank, world):
+    """The table-parallel checks of tests/test_torch_tp.py on this rank of
+    a ``(1, world)`` mesh."""
+    import tempfile as _tempfile
+
+    import pandas as pd
+
+    from rankfm_tpu_torch import RankFM
+    from rankfm_tpu_torch.parallel import make_mesh
+    from rankfm_tpu_torch.parallel import train as ptrain
+
+    mesh = make_mesh(data=1, model=world, device="cpu")
+    out = {"shape": mesh.shape}
+    prob = xla_problem(21)
+    for name, case in TP_CASES.items():
+        out[name] = tp_epochs(mesh, prob, epochs=[0, 1], **case)
+    users = np.arange(0, prob["U"], 5)
+    for filtered in (False, True):
+        for sharded in (False, True):
+            out[f"topk_{filtered}_{sharded}"] = sharded_lists(
+                mesh, prob, users, 10, filtered, sharded)
+
+    # past the data-parallel budget the planner places the weights
+    # table-parallel; the model keeps its shards
+    ptrain.DP_TABLE_BYTES = 0
+    frame = pd.DataFrame(prob["pairs"], columns=["user_id", "item_id"])
+    m = RankFM(factors=8, loss="warp", max_samples=4, use_fused=False,
+               mesh=mesh).fit(frame, epochs=2)
+    recs = m.recommend(users, n_items=10, filter_previous=True)
+    path = Path(_tempfile.mkdtemp()) / f"tp{rank}.npz"
+    m.save(path)
+    single = RankFM.load(path, device="cpu")
+    out["model"] = dict(
+        plan=m.last_fit_plan_, shard_rows=m._w_tp["v_i"].shape[0],
+        recs=recs.values, single_recs=single.recommend(
+            users, n_items=10, filter_previous=True).values,
+        predict=m.predict(frame.head(20)),
+        single_predict=single.predict(frame.head(20)),
+        weights=m._weights,
+        lls=[r["log_likelihood"] for r in m.training_log_])
+    # the window step on the shards, verbose: each epoch's report gathers
+    # the tables on every rank
+    mw = RankFM(factors=8, loss="warp", max_samples=4, use_fused=False,
+                train_step="window", mesh=mesh).fit(frame, epochs=2,
+                                                    verbose=True)
+    single = RankFM(factors=8, loss="warp", max_samples=4, device="cpu")
+    single._init_all(frame)
+    single._weights = mw._weights
+    single.is_fit = True
+    out["model_window"] = dict(
+        plan=mw.last_fit_plan_, weights=mw._weights,
+        recs=mw.recommend(users, n_items=10, filter_previous=True).values,
+        single_recs=single.recommend(users, n_items=10,
+                                     filter_previous=True).values,
+        lls=[r["log_likelihood"] for r in mw.training_log_])
+    return out
+
+
+def ring_tp_2x2(rank, world):
+    """Table-parallel epochs on this rank of a (2, 2) mesh."""
+    from rankfm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(data=2, model=2, device="cpu")
+    prob = xla_problem(8)
+    return {"coords": (mesh.data_rank, mesh.model_rank),
+            **{kind: tp_epochs(mesh, prob, kind, 512, range(6))
+               for kind in ("window", "candidate")}}
+
+
+if __name__ == "__main__":
+    _rank_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
