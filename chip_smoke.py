@@ -99,9 +99,12 @@ result line):
    ``device='cpu'``; ``observe.device_memory_stats`` (peak allocated bytes)
    and ``observe.trace`` around one epoch (a trace file);
 11. the mesh (``rankfm_tpu_torch.parallel``): first, in this process,
-   ``dp_fused_epoch`` on a ``data=1`` NCCL mesh against ``fused_epoch``
-   from the same tables (run 6: the same draws and records at every B1
-   launch, the same tables); then two ranks spawned with
+   ``dp_fused_epoch`` on a ``data=1`` mesh against ``fused_epoch`` from the
+   same tables (run 6, an identity check of rank 0's draws: the same draws
+   and records at every B1 launch, the same tables; a group of one rank
+   runs no collective, so one NCCL all-reduce of a known tensor on the
+   one-rank group checks that NCCL starts on the card); then two ranks
+   spawned with
    ``torch.multiprocessing``, one card each over NCCL when there are two,
    else both on ``cuda:0`` over gloo: (1) the ML-1M fit of phase 5 on
    ``data=2`` with ``dp_sync_every`` 1 and 4, its hit rate and DCG at 10 at
@@ -781,7 +784,9 @@ def profile_call(torch, run, top=4, margin=PROFILE_MARGIN_S):
     """``(wall seconds, device-busy seconds, [(name, ms, count), ...])`` of
     one ``run()`` ending in a device sync, traced with ``torch.profiler``:
     the ``top`` device activities (kernels, memsets, copies) by device time,
-    all of them with ``top=None``. Device seconds are None when the trace
+    all of them with ``top=None``. Busy seconds are the union of the device
+    activities' intervals (`busy_union`), so work on concurrent streams (an
+    NCCL kernel beside a compute kernel) counts once; None when the trace
     holds no device time.
 
     The tracer drops every device record whose timestamp lies outside the
@@ -811,8 +816,23 @@ def profile_call(torch, run, top=4, margin=PROFILE_MARGIN_S):
             us = e.self_cuda_time_total
         rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows) / 1e3
+    busy = busy_union(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA) / 1e6
     return wall, (busy if busy > 0 else None), rows[:top]
+
+
+def busy_union(spans):
+    """The length of the union of the ``(start, end)`` intervals."""
+    total, cur = 0.0, None
+    for a, b in sorted(spans):
+        if cur is not None and a <= cur[1]:
+            cur[1] = max(cur[1], b)
+            continue
+        if cur is not None:
+            total += cur[1] - cur[0]
+        cur = [a, b]
+    return total + (cur[1] - cur[0] if cur is not None else 0.0)
 
 
 def profiler_windows(torch, scatter, dev, n):
@@ -1441,11 +1461,14 @@ def mesh_rank(rank, world, work, devices, backend, card):
 
 
 def mesh_data1_check(torch, fused, train):
-    """Run 6: `dp_fused_epoch` on a data=1 NCCL mesh in this process
-    against `fused_epoch` from the same tables, at the ML-1M main layout:
-    the same draws and records reach B1 (recorded at each launch), and the
-    same tables come out: bit for bit where B1 is bit for bit the same run
-    to run."""
+    """Run 6: `dp_fused_epoch` on a data=1 mesh in this process against
+    `fused_epoch` from the same tables, at the ML-1M main layout: an
+    identity check of rank 0's draws (the same draws and records reach B1,
+    recorded at each launch, and the same tables come out: bit for bit
+    where B1 is bit for bit the same run to run). A group of one rank runs
+    no collective, so the epoch sends nothing through NCCL: one NCCL
+    all-reduce of a known tensor on the one-rank group checks that NCCL
+    starts and launches on the card."""
     import torch.distributed as dist
 
     from rankfm_tpu_torch.parallel import init_distributed, make_mesh
@@ -1455,6 +1478,12 @@ def mesh_data1_check(torch, fused, train):
                      rank=0, backend="nccl")
     mesh = make_mesh(data=1, device="cuda:0", backend="nccl")
     dev = mesh.device
+    probe = torch.arange(1 << 20, dtype=torch.float32, device=dev)
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    check(torch.equal(probe, torch.arange(1 << 20, dtype=torch.float32,
+                                          device=dev)),
+          "a one-rank NCCL all-reduce changed its tensor")
     bs, chunk, ub = 32768, 256, 1024
     rec, group, cids, ublk, iblk = fused.make_records_grouped(
         train[:, 0], train[:, 1], np.ones(len(train), np.float32), N_USERS,
@@ -1513,7 +1542,9 @@ def mesh_data1_check(torch, fused, train):
               f"data=1 mesh differs from fused_epoch by {err}")
     else:
         check(err <= TABLE_ATOL, f"data=1 mesh differs by {err}")
-    print(f"mesh run 6: dp_fused_epoch on a data=1 NCCL mesh vs fused_epoch, "
+    print(f"mesh run 6: one NCCL all-reduce of 2^20 f32 on a one-rank group "
+          f"returned its tensor; dp_fused_epoch on a data=1 mesh (no "
+          f"collective: an identity check of rank 0's draws) vs fused_epoch, "
           f"ML-1M main layout, {len(seen[0])} batches: the same draws and "
           f"records at every B1 launch; tables "
           + ("bit-equal (B1 is bit for bit the same run to run)"

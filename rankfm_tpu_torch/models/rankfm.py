@@ -23,8 +23,10 @@ the planner places the weights data-parallel (replicated tables, one delta
 all-reduce per sync group: the fused engine through
 `fused.dp_fused_epoch`, the XLA steps through `parallel.train`) or, past
 `parallel.train.DP_TABLE_BYTES`, table-parallel (`parallel.tp`: each rank
-keeps its row shards, `recommend` scores from them, and reading the
-weights gathers them); `recommend` merges per-shard top-k lists over the
+keeps its row shards, `predict` and `recommend` score from them, and
+`RankFM.gather_weights` gathers them: a collective, which `save`, the
+weight properties and `similar_items` / `similar_users` call on every
+rank); `recommend` merges per-shard top-k lists over the
 ``model`` axis (`parallel.retrieval`).
 """
 
@@ -43,6 +45,7 @@ from rankfm_tpu_torch.models.planner import FitSpec, plan_fit
 from rankfm_tpu_torch.ops import fused as fused_mod
 from rankfm_tpu_torch.ops import scoring, topk, training
 from rankfm_tpu_torch.ops.negatives import build_bitmap_words
+from rankfm_tpu_torch.parallel.fused import make_fused_dp_epoch_fn
 from rankfm_tpu_torch.utils.convert import weights_from_numpy, weights_to_numpy
 from rankfm_tpu_torch.utils.data import (
     _int64_view,
@@ -219,7 +222,7 @@ class _FitRun:
             epoch_fn = make_sharded_epoch_fn(
                 m.mesh, num_items, plan.max_samples, self.x_uf_any,
                 self.x_if_any, bs_x, sample_rounds=plan.rounds,
-                sampler=m._sampler, step_kind=step_kind, dp=True,
+                sampler=m._sampler, step_kind=step_kind,
                 dp_sync_every=m.dp_sync_every)
         else:
             if step_kind == 'candidate':
@@ -236,7 +239,7 @@ class _FitRun:
         # the steps update the item and user tables in place: train copies,
         # so arrays handed out before this fit (`_weights`, `v_i`, ...; on
         # the CPU these are views) keep their values
-        w = {k: v.clone() for k, v in m._w.items()}
+        w = {k: v.clone() for k, v in m.gather_weights().items()}
         for epoch in epochs:
             t0 = time.time()
             w, ll = epoch_fn(
@@ -258,7 +261,7 @@ class _FitRun:
             plan.xla_batch, sample_rounds=plan.rounds, max_row_len=mrl,
             post_reject=plan.post_reject, step_kind=step_kind)
         w_tp, xu_tp, xi_tp = tp_mod.pad_and_place(
-            m.mesh, m._w, m._x_uf_dev, m._x_if_dev)
+            m.mesh, m.gather_weights(), m._x_uf_dev, m._x_if_dev)
         m._w_tp, m._w_full = w_tp, None
         if step_kind == 'window':
             hist = {"packed": tp_mod.pad_packed_hist(
@@ -284,7 +287,7 @@ class _FitRun:
 
         # the tables are fresh tensors (copies): arrays handed out before
         # this fit (`_weights`, `v_i`, ...) keep their values
-        w = m._w
+        w = m.gather_weights()
         U_pad = fused_mod.user_pad(U, plan.user_block)
         tab_u, tab_i = fused_mod.extend_tables(
             w["w_i"], w["v_u"], w["v_i"], U_pad, I_pad)
@@ -358,18 +361,17 @@ class _FitRun:
 
         def run_epochs(epochs, chunk, ub, layout):
             live = [t for t in (tab_u, tab_i, tab_uf, tab_if) if t is not None]
+            # one device, or this rank of the data-parallel mesh
+            epoch_fn = make_fused_dp_epoch_fn(
+                m.mesh, U, num_items, F, plan.max_samples, plan.batch_size,
+                chunk, ub=ub, n_windows=plan.n_windows,
+                sync_every=m.dp_sync_every)
             for epoch in epochs:
                 t0 = time.time()
-                # one device, or this rank of the data-parallel mesh
-                ll = fused_mod.dp_fused_epoch(
+                ll = epoch_fn(
                     tab_u, tab_i, packed, layout, self.eta(epoch), m.alpha,
-                    m.seed, self.rng_off + epoch, mesh=m.mesh, num_users=U,
-                    num_items=num_items, factors=F,
-                    max_samples=plan.max_samples,
-                    batch_size=plan.batch_size, chunk=chunk, ub=ub,
-                    n_windows=plan.n_windows, sync_every=m.dp_sync_every,
-                    x_uf=x_uf, x_if=x_if, tab_uf=tab_uf, tab_if=tab_if,
-                    beta=m.beta)
+                    m.seed, self.rng_off + epoch, x_uf=x_uf, x_if=x_if,
+                    tab_uf=tab_uf, tab_if=tab_if, beta=m.beta)
                 self.log_epoch(epoch, _ll_guard(ll, live), time.time() - t0)
 
         # chunk-tail schedule: the closing epochs run at the oracle-parity
@@ -551,24 +553,39 @@ class RankFM:
 
     @property
     def _w(self):
-        """The weights, a dict of tensors on the model's device. After a
-        table-parallel fit the rank holds only its row shards (``_w_tp``);
-        reading ``_w`` then gathers the whole tables with one all-gather
-        over ``model``, which every rank must call."""
+        """The weights held whole on this rank, a dict of tensors on the
+        model's device. After a table-parallel fit the rank holds only its
+        row shards (``_w_tp``): `gather_weights` returns the whole tables
+        then, and reading ``_w`` raises."""
         if self._w_tp is not None:
-            from rankfm_tpu_torch.parallel import tp
-            return tp.extract(self.mesh, self._w_tp, len(self.user_idx),
-                              len(self.item_idx))
+            raise RuntimeError(
+                "this rank holds table-parallel row shards: gather_weights(), "
+                "called on every rank of the mesh, returns the whole tables")
         return self._w_full
 
     @_w.setter
     def _w(self, w):
         self._w_full, self._w_tp = w, None
 
+    def gather_weights(self):
+        """The whole weights, a dict of tensors on the model's device.
+
+        After a table-parallel fit this is a collective: ONE all-gather of
+        the row shards over ``model``, which every rank of the mesh must
+        call (as every process reads a JAX global array). `save`,
+        ``_weights`` and the weight properties (``v_u``, ``v_i``, ...) call
+        it; a read on one rank alone hangs the job."""
+        if self._w_tp is None:
+            return self._w_full
+        from rankfm_tpu_torch.parallel import tp
+        return tp.extract(self.mesh, self._w_tp, len(self.user_idx),
+                          len(self.item_idx))
+
     @property
     def _weights(self):
-        """The weights as host numpy arrays, keyed as in `rankfm_tpu`."""
-        w = self._w
+        """The weights as host numpy arrays, keyed as in `rankfm_tpu`
+        (`gather_weights`: a collective after a table-parallel fit)."""
+        w = self.gather_weights()
         return None if w is None else weights_to_numpy(w)
 
     @_weights.setter
@@ -580,7 +597,7 @@ class RankFM:
              for k, v in w.items()}, self.device)
 
     def _np_weight(self, name):
-        w = self._w
+        w = self.gather_weights()
         return None if w is None else w[name].cpu().numpy()
 
     @property
@@ -799,14 +816,14 @@ class RankFM:
             "v_uf": "user-feature factors [v_uf]",
             "v_if": "item-feature factors [v_if]",
         }
-        w = self._w
+        w = self.gather_weights()
         for k, label in names.items():
             assert bool(torch.isfinite(w[k]).all()), \
                 f"{label} are not finite - try decreasing feature/sample_weight magnitudes"
 
     def _reg_penalty(self):
         """total L2 penalty over all weights"""
-        w = self._w
+        w = self.gather_weights()
         pen = 0.0
         for k in ("w_i", "v_u", "v_i"):
             pen += self.alpha * float(torch.sum(torch.square(w[k])))
@@ -912,8 +929,15 @@ class RankFM:
         known = ~(np.isnan(u) | np.isnan(i))
         u_idx = torch.from_numpy(np.where(known, u, 0).astype(np.int64)).to(self.device)
         i_idx = torch.from_numpy(np.where(known, i, 0).astype(np.int64)).to(self.device)
-        scores = scoring.score_pairs(self._w, self._x_uf_dev, self._x_if_dev,
-                                     u_idx, i_idx).cpu().numpy()
+        if self._w_tp is not None:
+            # the pairs' rows from their owners' shards: two exchanges
+            from rankfm_tpu_torch.parallel import tp
+            scores = tp.score_pairs(self.mesh, self._w_tp, self._x_uf_dev,
+                                    self._x_if_dev, u_idx, i_idx)
+        else:
+            scores = scoring.score_pairs(self._w, self._x_uf_dev,
+                                         self._x_if_dev, u_idx, i_idx)
+        scores = scores.cpu().numpy()
         scores = np.where(known, scores, np.nan).astype(np.float32)
 
         if cold_start == 'nan':
@@ -1008,7 +1032,8 @@ class RankFM:
         change"""
         reps = self._sim_cache.get(factor_key)
         if reps is None:
-            reps = self._w[factor_key] + feats @ self._w[feat_factor_key]
+            w = self.gather_weights()
+            reps = w[factor_key] + feats @ w[feat_factor_key]
             self._sim_cache[factor_key] = reps
         k = min(n, reps.shape[0] - 1)
         sims = reps @ reps[idx]

@@ -31,9 +31,10 @@ def make_fused_dp_epoch_fn(mesh, num_users, num_items, factors, max_samples,
     `split_layout_for_mesh`'s split and ``batch_size`` is the GLOBAL batch.
     ``sync_every=K`` merges the replicas every K batches (local SGD, as the
     XLA path's ``dp_sync_every``). ``batch_fn`` replaces the batch step
-    (same signature as `fused_batch`)."""
-    assert (batch_size // mesh.size) % chunk == 0, (batch_size, mesh.size,
-                                                    chunk)
+    (same signature as `fused_batch`). ``mesh=None`` is one device
+    (`fused_epoch`): `RankFM`'s fused fits run through this builder."""
+    n_dev = 1 if mesh is None else mesh.size
+    assert (batch_size // n_dev) % chunk == 0, (batch_size, n_dev, chunk)
     return partial(fused_mod.dp_fused_epoch, mesh=mesh, num_users=num_users,
                    num_items=num_items, factors=factors,
                    max_samples=max_samples, batch_size=batch_size,

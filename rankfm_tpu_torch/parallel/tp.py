@@ -38,7 +38,7 @@ from rankfm_tpu_torch.ops import fused as fused_mod
 from rankfm_tpu_torch.ops import training
 from rankfm_tpu_torch.ops.negatives import csr_member, draw_candidates
 from rankfm_tpu_torch.ops.scatter import apply_table_update, decay_c
-from rankfm_tpu_torch.parallel.mesh import weight_shardings
+from rankfm_tpu_torch.parallel.mesh import feature_shardings, weight_shardings
 
 ROW_SHARDED = ("w_i", "v_i", "v_u")
 
@@ -70,12 +70,17 @@ def pad_and_place(mesh, w, x_uf, x_if):
     m = mesh.shape["model"]
     U_pad = _pad_rows(w["v_u"].shape[0], m)
     I_pad = _pad_rows(w["v_i"].shape[0], m)
-    rows = {"w_i": I_pad, "v_i": I_pad, "v_u": U_pad}
-    specs = weight_shardings(mesh)
-    w_tp = {k: (shard_rows(mesh, v, rows[k]) if specs[k][:1] == ("model",)
-                else torch.as_tensor(v).to(mesh.device, copy=True))
-            for k, v in w.items()}
-    return w_tp, shard_rows(mesh, x_uf, U_pad), shard_rows(mesh, x_if, I_pad)
+    rows = {"w_i": I_pad, "v_i": I_pad, "v_u": U_pad, "x_uf": U_pad,
+            "x_if": I_pad}
+    specs = dict(weight_shardings(mesh), **feature_shardings(mesh))
+
+    def place(k, v):
+        if specs[k][:1] == ("model",):
+            return shard_rows(mesh, v, rows[k])
+        return torch.as_tensor(v).to(mesh.device, copy=True)
+
+    return ({k: place(k, v) for k, v in w.items()}, place("x_uf", x_uf),
+            place("x_if", x_if))
 
 
 def extract(mesh, w_tp, num_users, num_items):
@@ -127,6 +132,20 @@ def owner_gather(mesh, idx, shards):
     from their owners, through one `exchange`."""
     safe, ok = owned(mesh, idx, shards[0].shape[0])
     return exchange(mesh, ok, [s[safe] for s in shards])
+
+
+def score_pairs(mesh, w_tp, x_uf, x_if, u_idx, i_idx):
+    """`ops.scoring.score_pairs` of the pairs ``(u_idx, i_idx)`` from the
+    row shards ``w_tp``: the pairs' user rows and item rows from their
+    owners (two exchanges over ``model``, every rank calls it), scored with
+    the whole feature matrices ``x_uf`` / ``x_if``."""
+    from rankfm_tpu_torch.ops.scoring import score_pairs as score
+
+    v_u, = owner_gather(mesh, u_idx, [w_tp["v_u"]])
+    v_i, w_i = owner_gather(mesh, i_idx, [w_tp["v_i"], w_tp["w_i"]])
+    rows = torch.arange(u_idx.shape[0], device=u_idx.device)
+    w = dict(w_tp, v_u=v_u, v_i=v_i, w_i=w_i[:, 0])
+    return score(w, x_uf[u_idx], x_if[i_idx], rows, rows)
 
 
 def _local_index(mesh, idx, rows):

@@ -88,26 +88,17 @@ def dp_epoch_body(step, batch_size, mesh, sync_every=1):
 
 def make_sharded_epoch_fn(mesh, num_items, max_samples, x_uf_any, x_if_any,
                           batch_size, sample_rounds=8, sampler="bsearch",
-                          step_kind="window", dp=None, table_bytes=0,
-                          dp_sync_every=1):
-    """Whole-epoch training over the mesh, with `training.epoch_body`'s
-    signature (``hist`` is the blocked history pack for ``step_kind=
-    'window'``, the CSR/bitmap dict for ``'candidate'``).
+                          step_kind="window", dp_sync_every=1):
+    """The data-parallel epoch of the XLA ``step_kind`` step on this rank
+    (`dp_epoch_body`), with `training.epoch_body`'s signature (``hist`` is
+    the blocked history pack for ``step_kind='window'``, the CSR/bitmap dict
+    for ``'candidate'``). Placement is the planner's (`uses_dp`); a
+    table-parallel plan runs `rankfm_tpu_torch.parallel.tp`.
 
-    ``dp=None`` picks data-parallel when ``table_bytes`` fits
-    `DP_TABLE_BYTES`. The candidate step is built as the JAX package's DP
-    path builds it: without post-hoc rejection and without the row-length
-    bound. ``dp_sync_every=K`` runs K local batches per replica between
-    merges (local SGD); K = 1 merges every batch."""
-    if dp is None:
-        dp = uses_dp(mesh, batch_size, table_bytes)
-    else:
-        dp = dp and uses_dp(mesh, batch_size, 0)
-    if not dp:
-        raise NotImplementedError(
-            "the GSPMD training lowering is not ported (ROADMAP queue 1, "
-            "deliberately not ported): table-parallel plans run "
-            "rankfm_tpu_torch.parallel.tp")
+    The candidate step is built as the JAX package's DP path builds it:
+    without post-hoc rejection and without the row-length bound.
+    ``dp_sync_every=K`` runs K local batches per replica between merges
+    (local SGD); K = 1 merges every batch."""
     if step_kind == "window":
         step = training.make_window_train_step(num_items, max_samples,
                                                x_uf_any, x_if_any)

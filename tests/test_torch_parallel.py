@@ -4,7 +4,8 @@ package's plans, and one 2-rank gloo ring (`torch_common.ring_dp`) whose
 results the tests below read: the fused engine's and the XLA steps' epochs
 merged by one delta all-reduce per sync group, counted exactly and against
 the JAX package's `make_fused_dp_epoch_fn` (its Pallas kernel in interpret
-mode), and `RankFM(mesh=...)` end to end.
+mode) and its DP XLA epoch (each rank fed that epoch's rows and draws),
+and `RankFM(mesh=...)` end to end.
 """
 
 import dataclasses
@@ -34,12 +35,14 @@ from torch_common import one_torch_thread, pallas_interpret  # noqa: F401
 from test_sharding import _fake_batch_fn
 
 REL = 2e-2
+# the XLA steps against the JAX package's, fed its draws: f32 on both sides
+JAX_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
 def ring():
     """Both ranks' results of `torch_common.ring_dp` on a (2, 1) mesh."""
-    return tc.run_ring("ring_dp", 2)
+    return tc.run_ring("ring_dp", 2, tc.jax_feeds(2, dp=True))
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +397,22 @@ def test_dp_xla_epochs_train_identical_replicas(ring, kind):
     for k in w0:
         np.testing.assert_array_equal(w0[k], w1[k])
     assert not np.allclose(w0["v_i"], prob["w"]["v_i"])
+
+
+@pytest.mark.parametrize("kind", list(tc.DP_JAX_CASES))
+def test_dp_xla_epoch_matches_jax(ring, kind):
+    """One global batch of the window or candidate step with side features
+    on the (2, 1) mesh, each rank fed its rows and draws of the JAX
+    package's DP epoch (`tc.jax_feed`): the merged tables and the ll agree
+    with that epoch's (dyadic weights: the JAX bf16 scoring is exact)."""
+    case = tc.DP_JAX_CASES[kind]
+    want, want_lls, prob = tc.jax_epochs(case, 2, dp=True)
+    (got, lls, used), (got1, lls1, used1) = (r[f"dp_jax_{kind}"]
+                                             for r in ring)
+    assert used == used1 == 1 and lls == lls1
+    for k in got:
+        np.testing.assert_array_equal(got[k], got1[k])
+    tc.assert_epochs_match_jax(got, lls, want, want_lls, prob["w"], JAX_TOL)
 
 
 def test_dp_sync_every_clamps_to_batch_count():

@@ -1,8 +1,10 @@
 """The port's table-parallel path (`rankfm_tpu_torch.parallel.tp`) and its
 sharded retrieval (`parallel.retrieval`) on gloo rings of the CPU: a
 (1, 2) ring (`torch_common.ring_tp`) held against the port's single-device
-epochs and top-k lists and the JAX package's `make_sharded_topk`, and a
-(2, 2) ring of four processes (`torch_common.ring_tp_2x2`).
+epochs and top-k lists and the JAX package's `make_sharded_topk`; a (2, 1)
+ring (`torch_common.ring_tp_fed`) and a (2, 2) ring of four processes
+(`torch_common.ring_tp_2x2`) held against the JAX package's TP epochs,
+each data rank fed that epoch's rows and draws.
 """
 
 import numpy as np
@@ -21,6 +23,8 @@ import torch_common as tc
 from torch_common import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
+# against the JAX package's TP epochs, fed its draws: f32 on both sides
+JAX_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -30,7 +34,12 @@ def ring():
 
 @pytest.fixture(scope="module")
 def ring4():
-    return tc.run_ring("ring_tp_2x2", 4)
+    return tc.run_ring("ring_tp_2x2", 4, tc.jax_feeds(2, 2))
+
+
+@pytest.fixture(scope="module")
+def ring21():
+    return tc.run_ring("ring_tp_fed", 2, tc.jax_feeds(2, 1))
 
 
 def _single_device_epochs(prob, kind, bs, epochs, features=False,
@@ -96,6 +105,56 @@ def test_tp_epochs_train_on_data_model_mesh(ring4, kind):
     assert not np.allclose(w0["v_u"], prob["w"]["v_u"])
 
 
+@pytest.mark.parametrize("case", list(tc.TP_JAX_CASES))
+@pytest.mark.parametrize("shape", ["2x1", "2x2"])
+def test_tp_epochs_match_jax(ring21, ring4, shape, case):
+    """data=2 (model 1 and 2): each data rank fed its rows and draws of the
+    JAX package's TP epoch (`tc.jax_feed`), the port's TP epochs (two
+    candidate epochs of 12 batches; one window batch on dyadic weights,
+    its groups split over model on (2, 2)), with side features, agree with
+    `rankfm_tpu.parallel.tp.tp_epoch_fn`'s on the same slice of the JAX CPU
+    mesh: the payload all-gather, the feature-gradient all-reduce and the
+    owned-row updates over both data ranks' halves of every batch."""
+    model = {"2x1": 1, "2x2": 2}[shape]
+    ranks = ring21 if model == 1 else ring4
+    c = tc.TP_JAX_CASES[case]
+    want, want_lls, prob = tc.jax_epochs(c, 2, model)
+    key = case if model == 1 else f"tp_jax_{case}"
+    got, lls, _, _ = ranks[0][key]
+    nb = -(-prob["n"] // c["bs"])
+    for r in ranks:
+        g, l, p, n_fed = r[key]
+        assert l == lls and p == 0.0 and n_fed == nb * len(c["epochs"])
+        for k in g:
+            np.testing.assert_array_equal(g[k], got[k])
+    tc.assert_epochs_match_jax(got, lls, want, want_lls, prob["w"], JAX_TOL)
+
+
+def test_tp_batches_split_over_data_ranks(ring4):
+    """(2, 2), `tp.tp_epoch_fn` with a step that records what it is handed:
+    the two data ranks' valid rows make every interaction exactly once per
+    epoch, the model replicas of one data rank get the same rows and the
+    same draws, the data ranks other draws, and the epoch ll (valid rows)
+    is summed over data alone."""
+    prob = tc.xla_problem(8)
+    seen = [r["visits"][0] for r in ring4]
+    lls = [r["visits"][1] for r in ring4]
+    assert all(x == [prob["n"]] * 2 for x in lls), lls
+    nb = len(seen[0]) // 2
+    for a, b in ((0, 1), (2, 3)):
+        for (ua, ia, da), (ub, ib, db) in zip(seen[a], seen[b]):
+            np.testing.assert_array_equal(ua, ub)
+            np.testing.assert_array_equal(ia, ib)
+            np.testing.assert_array_equal(da, db)
+    for t in range(len(seen[0])):
+        assert not np.array_equal(seen[0][t][2], seen[2][t][2])
+    want = np.sort(prob["pairs"][:, 0] * prob["I"] + prob["pairs"][:, 1])
+    for e in (0, 1):
+        got = np.concatenate([u * prob["I"] + i for r in (0, 2)
+                              for u, i, _ in seen[r][e * nb:(e + 1) * nb]])
+        np.testing.assert_array_equal(np.sort(got), want)
+
+
 @pytest.mark.parametrize("filtered", [False, True])
 @pytest.mark.parametrize("sharded", [False, True], ids=["whole", "shards"])
 def test_sharded_topk_equals_single_device_and_jax(ring, filtered, sharded):
@@ -136,8 +195,11 @@ def test_sharded_topk_equals_single_device_and_jax(ring, filtered, sharded):
 def test_model_routes_tp_past_the_budget_and_serves_from_shards(ring):
     """`DP_TABLE_BYTES` at 0: `RankFM(mesh=...)` places the weights
     table-parallel, keeps half the item rows per rank, and its filtered
-    `recommend` and `predict` from the shards equal a single-device
-    model's loaded from its `save` (which gathers the tables)."""
+    `recommend`, its `predict` and its `similar_items` equal a
+    single-device model's loaded from its `save` (which gathers the
+    tables). `predict` fetches the pairs' rows from their owners (two
+    exchanges, no gather of the tables), `similar_items` gathers once,
+    and reading `_w` raises instead of gathering behind the caller."""
     got, got1 = ring[0]["model"], ring[1]["model"]
     plan = got["plan"]
     assert plan.placement == "tp" and not plan.fused
@@ -147,6 +209,11 @@ def test_model_routes_tp_past_the_budget_and_serves_from_shards(ring):
     np.testing.assert_array_equal(got["recs"], got["single_recs"])
     np.testing.assert_array_equal(got["recs"], got1["recs"])
     np.testing.assert_array_equal(got["predict"], got["single_predict"])
+    np.testing.assert_array_equal(got["similar"], got["single_similar"])
+    assert got["collectives"] == {
+        "predict": {("owner_gather", "model"): 2},
+        "similar": {("extract", "model"): 1}}
+    assert not got["hidden_gather"] and not got1["hidden_gather"]
     assert np.isfinite(got["lls"]).all() and got["lls"] == got1["lls"]
     for k in got["weights"]:
         np.testing.assert_array_equal(got["weights"][k], got1["weights"][k])

@@ -11,6 +11,7 @@ This module imports no JAX at its top (the JAX pieces import it where they
 are used): the ranks of `run_ring` import it, and they run the port alone.
 """
 
+import contextlib
 import os
 import pickle
 import subprocess
@@ -340,10 +341,11 @@ def xla_counts(mesh, U, I, n, bs, sync_every, seed):
                 ll_reduces=stats[("epoch_ll", "world")][0])
 
 
-def xla_problem(seed, U=200, I=300, n=3000, F=8):
+def xla_problem(seed, U=200, I=300, n=3000, F=8, dyadic=False):
     """A random history, its CSR and blocked pack, padded columns and
     initial weights, for the XLA epochs: ``(cols, w, x_uf, x_if, hist,
-    packed, mrl, n)``, all numpy."""
+    packed, mrl, n)``, all numpy. ``dyadic`` puts the weights on a 1/64
+    grid, where the JAX package's bf16 scoring is exact."""
     from rankfm_tpu_torch.ops import fused
 
     rng = np.random.default_rng(seed)
@@ -355,12 +357,17 @@ def xla_problem(seed, U=200, I=300, n=3000, F=8):
     offsets = np.zeros(U + 1, np.int32)
     offsets[1:] = np.cumsum(counts)
     flat = pairs[np.lexsort((pairs[:, 1], pairs[:, 0])), 1].astype(np.int32)
-    w = {"w_i": rng.normal(0, 0.05, I).astype(np.float32),
-         "w_if": rng.normal(0, 0.05, 2).astype(np.float32),
-         "v_u": rng.normal(0, 0.1, (U, F)).astype(np.float32),
-         "v_i": rng.normal(0, 0.1, (I, F)).astype(np.float32),
-         "v_uf": rng.normal(0, 0.05, (3, F)).astype(np.float32),
-         "v_if": rng.normal(0, 0.05, (2, F)).astype(np.float32)}
+    shapes = {"w_i": (I,), "w_if": (2,), "v_u": (U, F), "v_i": (I, F),
+              "v_uf": (3, F), "v_if": (2, F)}
+    if dyadic:
+        k = {"w_i": 4, "w_if": 4, "v_u": 16, "v_i": 16, "v_uf": 8, "v_if": 8}
+        w = {name: (rng.integers(-k[name], k[name] + 1, shape) / 64).astype(
+            np.float32) for name, shape in shapes.items()}
+    else:
+        sd = {"w_i": 0.05, "w_if": 0.05, "v_u": 0.1, "v_i": 0.1,
+              "v_uf": 0.05, "v_if": 0.05}
+        w = {name: rng.normal(0, sd[name], shape).astype(np.float32)
+             for name, shape in shapes.items()}
     x_uf = (rng.random((U, 3)) < 0.3).astype(np.float32)
     x_if = (rng.random((I, 2)) < 0.3).astype(np.float32)
     return dict(pairs=pairs, w=w, x_uf=x_uf, x_if=x_if, offsets=offsets,
@@ -395,8 +402,7 @@ def xla_epochs(mesh, kind, prob, bs, epochs, sync_every=1, features=False):
         x_if = torch.zeros((I, 2))
     fn = make_sharded_epoch_fn(mesh, I, 4, features, features, bs,
                                sample_rounds=3, sampler="bsearch",
-                               step_kind=kind, dp=True,
-                               dp_sync_every=sync_every)
+                               step_kind=kind, dp_sync_every=sync_every)
     hist = (torch.from_numpy(prob["packed"]) if kind == "window" else
             {"offsets": torch.from_numpy(prob["offsets"]),
              "flat": torch.from_numpy(prob["flat"]),
@@ -408,6 +414,282 @@ def xla_epochs(mesh, kind, prob, bs, epochs, sync_every=1, features=False):
                    1492, epoch)
         lls.append(float(ll))
     return {k: v.numpy().copy() for k, v in w.items()}, lls
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's permutation and draws, fed to the port's epochs
+# ---------------------------------------------------------------------------
+
+# the epochs held against the JAX package: ``prob`` names the problem
+# (`JAX_PROBLEMS`); a dyadic problem runs one batch (the JAX steps score
+# the windows in bf16, exact on the 1/64 grid until the first update)
+JAX_PROBLEMS = {"normal": dict(seed=21),
+                "dyadic": dict(seed=31, n=500, dyadic=True)}
+TP_JAX_CASES = {
+    "candidate-features": dict(kind="candidate", bs=256, prob="normal",
+                               epochs=[0, 1]),
+    "window-features": dict(kind="window", bs=512, prob="dyadic",
+                            epochs=[0]),
+}
+DP_JAX_CASES = {kind: dict(kind=kind, bs=512, prob="dyadic", epochs=[0])
+                for kind in ("window", "candidate")}
+JAX_SEED, JAX_M, JAX_ROUNDS = 1492, 4, 3
+
+
+def jax_step_draws(key, kind, B, I, model=1):
+    """The draws a JAX step makes from ``key`` for ``B`` rows, in the
+    port's layout: the candidate sampler's ``[rounds + 1, B, M]`` sets, or
+    the window step's ``(blocks [G], u01 [G, Bg, BLK], r1 [G, Bg])``; with
+    ``model > 1`` dividing ``G``, the TP window step's uniforms, which each
+    ``model`` rank draws for its own groups from the key folded with its
+    index."""
+    import jax
+    import jax.numpy as jnp
+
+    from rankfm_tpu.ops import fused as jfused
+    from rankfm_tpu.ops.training import pick_window_groups
+
+    if kind == "candidate":
+        keys = jax.random.split(key, JAX_ROUNDS + 1)
+        ks = [keys[0]] + [jax.random.fold_in(keys[1], r)
+                          for r in range(JAX_ROUNDS)]
+        return np.stack([np.asarray(jax.random.randint(
+            k, (B, JAX_M), 0, I, dtype=jnp.int32)) for k in ks])
+    G = pick_window_groups(B)
+    BLK = jfused.block_size(I)
+    kblk, kcand, kgeo = jax.random.split(key, 3)
+    split = model > 1 and G % model == 0
+    parts = range(model) if split else [None]
+    Gs = G // len(parts)
+
+    def unif(k, shape):
+        return np.asarray(jax.random.uniform(k, shape, minval=1e-7,
+                                             maxval=1.0))
+
+    def fold(k, m):
+        return k if m is None else jax.random.fold_in(k, m)
+
+    return (np.asarray(jfused.draw_window_blocks(kblk, (G,), I)),
+            np.concatenate([unif(fold(kcand, m), (Gs, B // G, BLK))
+                            for m in parts]),
+            np.concatenate([unif(fold(kgeo, m), (Gs, B // G))
+                            for m in parts]))
+
+
+def jax_feed(case, data, model=1, dp=False):
+    """Per batch of ``case``'s epochs, in order: per ``data`` rank, its
+    rows ``(u, i, sw, valid)`` and its draws, as the JAX package's TP epoch
+    (`rankfm_tpu.parallel.tp.make_tp_epoch_fn`) or, ``dp``, its DP epoch
+    (`_cached_dp_epoch`, one batch per sync group) makes them from
+    ``PRNGKey(JAX_SEED)``."""
+    import jax
+
+    prob = xla_problem(**JAX_PROBLEMS[case["prob"]])
+    bs = case["bs"]
+    u, i, sw = (a.numpy() for a in xla_columns(prob, bs))
+    n_pad, Bd = len(u), bs // data
+    key = jax.random.PRNGKey(JAX_SEED)
+    feed = []
+    for epoch in case["epochs"]:
+        kperm, ksamp = jax.random.split(jax.random.fold_in(key, epoch))
+        perm = np.asarray(jax.random.permutation(kperm, n_pad))
+        for t in range(n_pad // bs):
+            per = []
+            for d in range(data):
+                r = perm[t * bs + d * Bd:t * bs + (d + 1) * Bd]
+                k = jax.random.fold_in(ksamp, t)
+                if dp:   # the device's fold, then local step 0 of the group
+                    k = jax.random.fold_in(jax.random.fold_in(k, d), 0)
+                elif data > 1:
+                    k = jax.random.fold_in(k, d)
+                per.append(((u[r], i[r], sw[r], r < prob["n"]),
+                            jax_step_draws(k, case["kind"], Bd, prob["I"],
+                                           1 if dp else model)))
+            feed.append(per)
+    return feed
+
+
+def jax_epochs(case, data, model=1, dp=False):
+    """``(whole weights, lls, problem)`` after ``case``'s epochs of the JAX
+    package's TP epoch (`rankfm_tpu.parallel.tp.tp_epoch_fn`) or, ``dp``,
+    its DP epoch (`make_sharded_epoch_fn(dp=True)`) on a ``(data, model)``
+    slice of its CPU mesh, with side features."""
+    import jax
+    import jax.numpy as jnp
+
+    from rankfm_tpu.parallel import tp as jtp
+    from rankfm_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from rankfm_tpu.parallel.train import make_sharded_epoch_fn
+
+    prob = xla_problem(**JAX_PROBLEMS[case["prob"]])
+    U, I, kind, bs = prob["U"], prob["I"], case["kind"], case["bs"]
+    mesh = jax_make_mesh(data=data, model=model,
+                         devices=jax.devices()[:data * model])
+    csr = {"offsets": jnp.asarray(prob["offsets"]),
+           "flat": jnp.asarray(prob["flat"]),
+           "bitmap": jnp.zeros((1, 1), jnp.uint32)}
+    if dp:
+        w = {k: jnp.asarray(v) for k, v in prob["w"].items()}
+        x_uf, x_if = jnp.asarray(prob["x_uf"]), jnp.asarray(prob["x_if"])
+        hist = jnp.asarray(prob["packed"]) if kind == "window" else csr
+        fn = make_sharded_epoch_fn(mesh, I, JAX_M, True, True, bs,
+                                   sample_rounds=JAX_ROUNDS,
+                                   sampler="bsearch", step_kind=kind,
+                                   dp=True)
+    else:
+        w, x_uf, x_if = jtp.pad_and_place(mesh, prob["w"], prob["x_uf"],
+                                          prob["x_if"])
+        hist = ({"packed": jtp.pad_packed_hist(mesh, prob["packed"], U)}
+                if kind == "window" else csr)
+        fn = jtp.tp_epoch_fn(mesh, I, JAX_M, True, True, bs, JAX_ROUNDS,
+                             prob["mrl"], False, kind)
+    u, i, sw = (jnp.asarray(a.numpy().astype(np.float32 if a.is_floating_point()
+                                             else np.int32))
+                for a in xla_columns(prob, bs))
+    lls = []
+    for epoch in case["epochs"]:
+        w, ll = fn(w, x_uf, x_if, hist, u, i, sw, prob["n"], 0.1, 0.01, 0.1,
+                   jax.random.PRNGKey(JAX_SEED), epoch)
+        lls.append(float(ll))
+    if not dp:
+        w = jtp.extract(w, U, I)
+    return {k: np.asarray(v) for k, v in w.items()}, lls, prob
+
+
+def assert_epochs_match_jax(got, got_lls, want, want_lls, w0, tol):
+    """Every weight within ``tol`` of the JAX package's, relative to its
+    largest entry, and its change from ``w0`` within ``tol`` of the JAX
+    change; the same rows moved; the lls within ``tol``."""
+    for k in want:
+        moved = want[k] - w0[k]
+        assert np.abs(moved).max() > 0, k
+        assert rel_err(got[k], want[k]) < tol, (k, rel_err(got[k], want[k]))
+        assert rel_err(got[k] - w0[k], moved) < tol, (
+            k, rel_err(got[k] - w0[k], moved))
+        np.testing.assert_array_equal(
+            np.abs(got[k] - w0[k]).reshape(len(moved), -1).max(1) > 0,
+            np.abs(moved).reshape(len(moved), -1).max(1) > 0, err_msg=k)
+    np.testing.assert_allclose(got_lls, want_lls, rtol=tol)
+
+
+@contextlib.contextmanager
+def patched(module, **fns):
+    """``module``'s attributes replaced by ``fns`` inside the block."""
+    saved = {k: getattr(module, k) for k in fns}
+    for k, v in fns.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def fed_builder(build, feed, data_rank, used):
+    """A step builder like ``build`` whose steps take each batch's rows and
+    draws from ``feed`` (`jax_feed`, this ``data_rank``'s entries, batch
+    after batch) instead of the epoch's own; ``used`` counts the batches
+    fed. The step's own `apply` runs on them."""
+    from rankfm_tpu_torch.ops.training import TrainStep
+
+    def built(*args, **kwargs):
+        step = build(*args, **kwargs)
+        cur = {}
+
+        def draw(gen, B):
+            rows, draws = feed[used[0]][data_rank]
+            used[0] += 1
+            assert len(rows[0]) == B, (len(rows[0]), B)
+            cur["rows"] = rows
+            if isinstance(draws, tuple):
+                return tuple(torch.from_numpy(a) for a in draws)
+            return torch.from_numpy(draws)
+
+        def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta,
+                  draws):
+            uu, ii, ss, vv = (torch.from_numpy(a) for a in cur["rows"])
+            return step.apply(w, x_uf, x_if, hist, uu.long(), ii.long(), ss,
+                              vv, eta, alpha, beta, draws)
+
+        return TrainStep(draw, apply)
+
+    return built
+
+
+def tp_fed_epochs(mesh, case, feed):
+    """`tp_epochs` of ``case`` with the JAX package's rows and draws
+    (`fed_builder`); also the batches fed."""
+    from rankfm_tpu_torch.parallel import tp
+
+    used = [0]
+    build = {"candidate": "make_tp_train_step",
+             "window": "make_tp_window_step"}[case["kind"]]
+    with patched(tp, **{build: fed_builder(getattr(tp, build), feed,
+                                           mesh.data_rank, used)}):
+        out = tp_epochs(mesh, xla_problem(**JAX_PROBLEMS[case["prob"]]),
+                        case["kind"], case["bs"], case["epochs"],
+                        features=True)
+    return out + (used[0],)
+
+
+def dp_fed_epochs(mesh, case, feed):
+    """`xla_epochs` of ``case`` with the JAX package's rows and draws; also
+    the batches fed."""
+    from rankfm_tpu_torch.ops import training
+
+    used = [0]
+    build = {"candidate": "make_train_step",
+             "window": "make_window_train_step"}[case["kind"]]
+    with patched(training, **{build: fed_builder(getattr(training, build),
+                                                 feed, mesh.rank, used)}):
+        out = xla_epochs(mesh, case["kind"],
+                         xla_problem(**JAX_PROBLEMS[case["prob"]]),
+                         case["bs"], case["epochs"], features=True)
+    return out + (used[0],)
+
+
+def jax_feeds(data, model=1, dp=False):
+    """The feeds (`jax_feed`) of the TP cases on a ``(data, model)`` ring,
+    or, ``dp``, of the DP cases on a ``(data, 1)`` ring."""
+    if dp:
+        return {f"dp_{k}": jax_feed(c, data, dp=True)
+                for k, c in DP_JAX_CASES.items()}
+    return {f"tp_{k}": jax_feed(c, data, model)
+            for k, c in TP_JAX_CASES.items()}
+
+
+def tp_visits(mesh, prob, bs, epochs):
+    """The rows each batch of `tp.tp_epoch_fn` hands this rank's step, its
+    draws, and the epochs' lls, with a step that records them and
+    changes nothing (its ll: the count of valid rows)."""
+    from rankfm_tpu_torch.ops.training import TrainStep
+    from rankfm_tpu_torch.parallel import tp
+
+    seen = []
+
+    def build(*args, **kwargs):
+        def draw(gen, B):
+            return torch.rand(B, generator=gen)
+
+        def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta,
+                  draws):
+            seen.append((u[valid].numpy().copy(), i[valid].numpy().copy(),
+                         draws.numpy().copy()))
+            return w, valid.sum().to(torch.float32)
+
+        return TrainStep(draw, apply)
+
+    w, x_uf, x_if = tp_inputs(prob, False)
+    w_tp, xu_tp, xi_tp = tp.pad_and_place(mesh, w, x_uf, x_if)
+    u, i, sw = xla_columns(prob, bs)
+    lls = []
+    with patched(tp, make_tp_train_step=build):
+        fn = tp.tp_epoch_fn(mesh, prob["I"], 4, False, False, bs)
+        for epoch in epochs:
+            w_tp, ll = fn(w_tp, xu_tp, xi_tp, None, u, i, sw, prob["n"], 0.1,
+                          0.01, 0.1, 1492, epoch)
+            lls.append(float(ll))
+    return seen, lls
 
 
 def two_group_frame(seed, n_users=48, frac=0.75):
@@ -486,9 +768,9 @@ def forced_dp_epochs(mesh, M):
     return tab_u.numpy(), tab_i.numpy(), lls
 
 
-def ring_dp(rank, world):
+def ring_dp(rank, world, feeds):
     """Every data-parallel check of tests/test_torch_parallel.py on this
-    rank of a ``(world, 1)`` mesh."""
+    rank of a ``(world, 1)`` mesh; ``feeds`` are `jax_feeds`'."""
     from rankfm_tpu_torch import RankFM, evaluation
     from rankfm_tpu_torch.parallel import make_mesh
 
@@ -517,6 +799,8 @@ def ring_dp(rank, world):
                       weights=m._weights)
     for M in (1, 5):
         out[f"forced_M{M}"] = forced_dp_epochs(mesh, M)
+    for k, case in DP_JAX_CASES.items():
+        out[f"dp_jax_{k}"] = dp_fed_epochs(mesh, case, feeds[f"dp_{k}"])
     return out
 
 
@@ -629,13 +913,30 @@ def ring_tp(rank, world):
     path = Path(_tempfile.mkdtemp()) / f"tp{rank}.npz"
     m.save(path)
     single = RankFM.load(path, device="cpu")
+    colls = {}
+
+    def traced(name, fn):
+        mesh.trace = []
+        res = fn()
+        colls[name] = {k: v[0] for k, v in mesh.collective_stats().items()}
+        mesh.trace = None
+        return res
+
+    item = frame["item_id"].iloc[0]
+    try:
+        m._w
+        hidden_gather = True
+    except RuntimeError:
+        hidden_gather = False
     out["model"] = dict(
         plan=m.last_fit_plan_, shard_rows=m._w_tp["v_i"].shape[0],
         recs=recs.values, single_recs=single.recommend(
             users, n_items=10, filter_previous=True).values,
-        predict=m.predict(frame.head(20)),
+        predict=traced("predict", lambda: m.predict(frame.head(20))),
         single_predict=single.predict(frame.head(20)),
-        weights=m._weights,
+        similar=traced("similar", lambda: m.similar_items(item, 5)),
+        single_similar=single.similar_items(item, 5),
+        weights=m._weights, collectives=colls, hidden_gather=hidden_gather,
         lls=[r["log_likelihood"] for r in m.training_log_])
     # the window step on the shards, verbose: each epoch's report gathers
     # the tables on every rank
@@ -655,15 +956,31 @@ def ring_tp(rank, world):
     return out
 
 
-def ring_tp_2x2(rank, world):
-    """Table-parallel epochs on this rank of a (2, 2) mesh."""
+def ring_tp_fed(rank, world, feeds):
+    """The TP epochs of `TP_JAX_CASES` on this rank of a ``(world, 1)``
+    mesh, the JAX package's rows and draws fed (``feeds``: `jax_feeds`')."""
+    from rankfm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(data=world, model=1, device="cpu")
+    return {k: tp_fed_epochs(mesh, case, feeds[f"tp_{k}"])
+            for k, case in TP_JAX_CASES.items()}
+
+
+def ring_tp_2x2(rank, world, feeds):
+    """Table-parallel epochs on this rank of a (2, 2) mesh: the port's own,
+    the JAX package's rows and draws fed (``feeds``: `jax_feeds`'), and the
+    rows each step is handed."""
     from rankfm_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(data=2, model=2, device="cpu")
     prob = xla_problem(8)
-    return {"coords": (mesh.data_rank, mesh.model_rank),
-            **{kind: tp_epochs(mesh, prob, kind, 512, range(6))
-               for kind in ("window", "candidate")}}
+    out = {"coords": (mesh.data_rank, mesh.model_rank),
+           **{kind: tp_epochs(mesh, prob, kind, 512, range(6))
+              for kind in ("window", "candidate")}}
+    for k, case in TP_JAX_CASES.items():
+        out[f"tp_jax_{k}"] = tp_fed_epochs(mesh, case, feeds[f"tp_{k}"])
+    out["visits"] = tp_visits(mesh, prob, 512, [0, 1])
+    return out
 
 
 if __name__ == "__main__":
