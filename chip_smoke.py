@@ -2,10 +2,12 @@
 """Smoke test of rankfm_tpu_torch on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py [--parent DIR | --only-updates | --only-host-half
-                           | --only-mesh | --profiler-windows N]
+                           | --only-mesh | --only-quality
+                           | --profiler-windows N]
 
 ``--only-updates`` stops after phase 4, ``--only-host-half`` runs phase 10
 alone, ``--only-mesh`` phase 11 after the single-device fit of phase 5,
+``--only-quality`` phase 12 alone,
 ``--profiler-windows N`` counts the ``torch.profiler`` traces that
 come back without device time in N short windows with and without the
 idle margin the script leaves in each; none prints a result line.
@@ -119,7 +121,26 @@ result line):
    model's ``save``. Both ranks' lls and table hashes must be equal; per
    rank and run the launches, the epochs and the collectives (calls, bytes
    and ms each: the delta all-reduce per sync group, the owner-gather
-   all-reduces and all-gathers of the table-parallel run).
+   all-reduces and all-gathers of the table-parallel run);
+12. quality against the oracle on the card: the port's C++ sequential
+   oracle (``rankfm_tpu_torch/native/oracle.cpp``, g++; the script fails
+   if it does not build) and its harness ``tests/torch_parity_common.py``
+   (imported by path), then, through the public API on ``cuda``: the full
+   ML-1M headline (6,040 x 3,706, 165 per user, 20 epochs, the auto plan:
+   fused with a 3-epoch chunk-tail) at model seeds 1492, 7 and 23, each
+   inside the JAX package's ``FUSED`` gate with the oracle's hit rate in
+   (0.75, 0.95); the large catalog (2,000 x 10,000, 18 epochs, +-0.03);
+   the five scaled configs of the JAX package's parity tests (2,400 x
+   1,200, 10 epochs: the candidate step under ``TIGHT``, the fused path
+   under ``FUSED``); the Instacart headline of phase 6 at 30 epochs with
+   its log2 weights (reported, not gated). The oracle fits run on a thread
+   pool while the card fits. Prints each case's five deltas (port -
+   oracle), the worst ML-1M seed's hit rate and DCG beside the JAX
+   package's, the phase's seconds and its launches (B1 with and without
+   features, B2 and B3 must all launch); then runs
+   ``examples/torch/movielens_style.py``, ``instacart_style.py`` and
+   ``features_and_weights.py``, each in a process of its own, all at once,
+   each required to exit 0.
 
 Each path runs with the launch counts set to 0 just before it and reads
 them just after (on each rank, on the mesh); the kernels' JSON adds the
@@ -132,6 +153,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -215,6 +237,14 @@ SWEEP_ROWS = (65_536, 131_072, 262_144, 524_288)
 MESH_BAND = 0.05
 WEB_USERS, WEB_ITEMS, WEB_F = 100_000, 1_000_000, 64
 MESH_TIMEOUT_S = 600
+# phase 12: the Instacart headline's epochs (`examples/instacart_style.py`),
+# and how long the card waits for the oracle's last fit
+QUALITY_IC_EPOCHS = 30
+QUALITY_ORACLE_TIMEOUT_S = 900
+# the examples run after phase 12, all at once, each within the timeout
+EXAMPLES = ("movielens_style.py", "instacart_style.py",
+            "features_and_weights.py")
+EXAMPLE_TIMEOUT_S = 600
 
 
 class SmokeFailure(Exception):
@@ -1660,6 +1690,164 @@ def mesh_phase(torch, fused, train, ref):
             for k in res[0]["tp"]["counts"]}
 
 
+# ---------------------------------------------------------------------------
+# 12. quality against the oracle on the card
+# ---------------------------------------------------------------------------
+
+def parity_common():
+    """`tests/torch_parity_common.py` of this tree, imported by path: the
+    oracle harness, the JAX package's gates and the configurations."""
+    import importlib.util
+    if "torch_parity_common" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "torch_parity_common", ROOT / "tests" / "torch_parity_common.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod      # dataclasses look the module up
+        spec.loader.exec_module(mod)
+    return sys.modules["torch_parity_common"]
+
+
+def quality_phase(torch, RankFM, evaluation, fused, scatter, ic_data):
+    """Phase 12: the full ML-1M headline at three model seeds, the mixed
+    large catalog, the five scaled configs and the 30-epoch Instacart
+    headline, each fitted on the card through the public API and held
+    against the port's C++ sequential oracle on the same data and initial
+    weights; the oracle fits run on threads while the card fits. Returns
+    the launch counts of the card's fits."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rankfm_tpu_torch import native
+
+    tpc = parity_common()
+    t_phase = time.time()
+    t0 = time.time()
+    check(native.get_oracle() is not None,
+          f"the sequential oracle did not build: {native.oracle_build_error}")
+    print(f"build: sequential oracle {time.time() - t0:.2f} s (g++)",
+          flush=True)
+    ic_train, ic_test, ic_sw = ic_data[:3]
+    instacart = tpc.Case(
+        "instacart-headline", lambda: (ic_train, ic_test,
+                                       {"sample_weight": ic_sw}),
+        dict(factors=50, loss="warp", max_samples=50, alpha=0.01, beta=0.1,
+             learning_rate=0.1, learning_schedule="invscaling", seed=SEED),
+        QUALITY_IC_EPOCHS, None)
+    # the longest oracle fits first
+    cases = ([instacart] + [tpc.ml1m_headline(s) for s in tpc.ML1M_SEEDS]
+             + [tpc.MIXED_LARGE] + list(tpc.SCALED))
+    t0 = time.time()
+    data = {}   # by generator: the three ML-1M seeds share one log
+    for case in cases:
+        if case.data not in data:
+            data[case.data] = case.data()
+    print(f"quality data: {time.time() - t0:.2f} s", flush=True)
+
+    workers = max(2, min(len(cases), (os.cpu_count() or 4) - 2))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        oracles = [pool.submit(tpc.oracle_metrics,
+                               RankFM(**case.model, device="cpu"),
+                               data[case.data][0], data[case.data][1],
+                               case.epochs, **data[case.data][2])
+                   for case in cases]
+        reset_launches(torch, fused, scatter)
+        fits = []
+        for case in cases:
+            train, test, kw = data[case.data]
+            t0 = time.time()
+            model = RankFM(**case.model, device="cuda").fit(
+                train, epochs=case.epochs, **kw)
+            torch.cuda.synchronize()
+            fit_s = time.time() - t0
+            check_lls(model, case.epochs, case.name)
+            fits.append((model.last_fit_plan_, fit_s,
+                         evaluation.compute(model, test, k=10)))
+        counts = launches_of(fused, scatter)
+        t0 = time.time()
+        oracles = [f.result(timeout=QUALITY_ORACLE_TIMEOUT_S)
+                   for f in oracles]
+    print(f"quality: card fits done, then {time.time() - t0:.2f} s waiting "
+          f"for the oracle ({workers} threads)", flush=True)
+
+    failures, ml1m = [], {}
+    for case, (plan, fit_s, build), oracle in zip(cases, fits, oracles):
+        d = tpc.deltas(build, oracle)
+        bad = tpc.gate_failures(case, build, oracle)
+        failures += [f"{case.name}: {b}" for b in bad]
+        if case.name.startswith("ml1m"):
+            ml1m[case.model["seed"]] = d
+            if not (plan.fused and plan.chunk_tail == 3):
+                failures.append(f"{case.name}: plan {plan}")
+        if case is tpc.MIXED_LARGE and not (plan.fused
+                                            and plan.chunk_tail == 3):
+            failures.append(f"{case.name}: plan {plan}")
+        gate = ("not gated" if case.gates is None else
+                "FAIL " + "; ".join(bad) if bad else "inside the gate")
+        if case.gates is None:
+            beyond = [m for m in tpc.METRICS if abs(d[m]) > 0.03]
+            gate += (f", beyond +-0.03: {beyond}" if beyond
+                     else ", every delta inside +-0.03")
+        print(f"quality {case.name}: port - oracle "
+              + ", ".join(f"{m} {d[m]:+.4f}" for m in tpc.METRICS)
+              + f" ({gate}); port hit_rate {build['hit_rate']:.4f}, oracle "
+              f"{oracle['hit_rate']:.4f}; fit {fit_s:.2f} s for "
+              f"{case.epochs} epochs, plan "
+              + (f"fused, chunk {plan.chunk}, {plan.n_main} main + "
+                 f"{plan.n_tail} {plan.step_kind} tail + {plan.chunk_tail} "
+                 f"chunk-tail" if plan.fused else f"{plan.step_kind} step")
+              + f" ({CARD})", flush=True)
+    for m in ("hit_rate", "discounted_cumulative_gain"):
+        seed = min(ml1m, key=lambda s: ml1m[s][m])
+        print(f"quality ML-1M headline, worst seed by {m}: {seed}, "
+              f"{ml1m[seed][m]:+.4f} (the JAX package on a TPU: "
+              f"{tpc.JAX_WORST_ML1M[m]:+.3f}, BENCHMARKS.md)", flush=True)
+    check(counts["fused_chunk"] > 0 and counts["fused_chunk_features"] > 0
+          and counts["table_update_sorted"] > 0
+          and counts["table_update_dense"] > 0,
+          f"phase 12 did not launch B1, featured B1, B2 and B3: {counts}")
+    print(f"quality phase: {time.time() - t_phase:.1f} s; launches {counts}",
+          flush=True)
+    check(not failures, "quality against the oracle: " + "; ".join(failures))
+    return counts
+
+
+def run_examples():
+    """The examples of `examples/torch/` that this script runs, each as a
+    user runs it (a process of its own, on the card), all at once: each
+    must exit 0 within `EXAMPLE_TIMEOUT_S`; their output is printed."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.time()
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            out = tempfile.TemporaryFile(mode="w+")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / "torch" / name)],
+                cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+                text=True), out)
+        failed = []
+        for name, (proc, out) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, EXAMPLE_TIMEOUT_S
+                                           - (time.time() - t0)))
+            except subprocess.TimeoutExpired:
+                rc = f"no exit within {EXAMPLE_TIMEOUT_S} s"
+            out.seek(0)
+            for line in out.read().splitlines():
+                print(f"example {name}: {line}", flush=True)
+            if rc != 0:
+                failed.append(f"{name}: {rc}")
+    finally:
+        for proc, out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    print(f"examples: {time.time() - t0:.1f} s for {', '.join(EXAMPLES)} "
+          f"({CARD})", flush=True)
+    check(not failed, f"examples failed: {failed}")
+
+
 def tree_times(tree):
     """The times of another tree of this repository (``--times-of`` in a
     process of its own): ``{"update": {"case/kernel": times}, "candidate":
@@ -1770,6 +1958,10 @@ def run(args):
         host_half_path(torch, RankFM, evaluation, fused, scatter, train, test,
                        instacart_data())
         return 0
+    if args.only_quality:
+        quality_phase(torch, RankFM, evaluation, fused, scatter,
+                      instacart_data())
+        return 0
     if args.only_mesh:
         # the single-device ML-1M fit the mesh's is held against, then 11
         _, ref = ml1m_path(torch, RankFM, evaluation, fused, scatter, train,
@@ -1843,6 +2035,11 @@ def run(args):
     # 11. the mesh: two ranks (runs 1-5), a data=1 mesh in this process
     mesh_counts = mesh_phase(torch, fused, train, ml1m_ref)
     paths.append(mesh_counts)
+
+    # 12. quality against the oracle on the card, then the examples
+    paths.append(quality_phase(torch, RankFM, evaluation, fused, scatter,
+                               ic_data))
+    run_examples()
     if args.parent:
         parents.append(tree_times(args.parent))
         print_parent_table(parents, up_times, tm_ic["candidate"], win_s,
@@ -1898,6 +2095,8 @@ def main():
                     help="phases 1, 2 and 4 only; prints no result line")
     ap.add_argument("--only-host-half", action="store_true",
                     help="phases 1, 2 and 10 only; prints no result line")
+    ap.add_argument("--only-quality", action="store_true",
+                    help="phases 1, 2 and 12 only; prints no result line")
     ap.add_argument("--only-mesh", action="store_true",
                     help="phases 1, 2, 5 (the single-device reference) and "
                          "11 only; prints no result line")

@@ -309,9 +309,12 @@ class _FitRun:
             cache = m._rec_cache if isinstance(m._rec_cache, dict) else {}
             if rec_key in cache and m._ingest_hash is not None:
                 return cache[rec_key]
-            rec, group, cids, ublk, iblk = fused_mod.make_records_grouped(
-                m.interactions[:, 0], m.interactions[:, 1], m.sample_weight,
-                U, num_items, plan.batch_size, chunk, ub=ub)
+            rec, group, cids, ublk, iblk = fused_mod.deal_by_fraction(
+                fused_mod.make_records_grouped(
+                    m.interactions[:, 0], m.interactions[:, 1],
+                    m.sample_weight, U, num_items, plan.batch_size, chunk,
+                    ub=ub),
+                chunk, U, num_items, ub=ub)
             layout = (torch.from_numpy(rec).to(dev), torch.from_numpy(group),
                       torch.from_numpy(cids), torch.from_numpy(ublk),
                       torch.from_numpy(iblk))

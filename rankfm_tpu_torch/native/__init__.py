@@ -1,13 +1,16 @@
-"""ctypes bindings for the native host-side data pipeline (``ingest.cpp``),
-the port's copy of the loader half of `rankfm_tpu/native/__init__.py`.
+"""ctypes bindings for the native host-side data pipeline (``ingest.cpp``)
+and the sequential SGD oracle (``oracle.cpp``), the port's copy of
+`rankfm_tpu/native/__init__.py`.
 
-The library is compiled with g++ at first use, from the source beside this
+Each library is compiled with g++ at first use, from its source beside this
 file and nothing else, into ``rankfm_tpu_torch/_build/`` (where the CUDA
-kernels' libraries go too). All entry points have pure-numpy fallbacks in
-`rankfm_tpu_torch.utils.data`: without a toolchain `get_lib` returns None,
-every function here returns None and the callers take the numpy / pandas
-path, which gives the same arrays. That is a convenience of the host code;
-nothing on a device depends on it.
+kernels' libraries go too). All ingest entry points have pure-numpy
+fallbacks in `rankfm_tpu_torch.utils.data`: without a toolchain `get_lib`
+returns None, every ingest function here returns None and the callers take
+the numpy / pandas path, which gives the same arrays. That is a convenience
+of the host code; nothing on a device depends on it. The oracle is test and
+validation infrastructure (`tests/torch_parity_common.py`,
+`chip_smoke.py`); no training path calls it.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import numpy as np
 
 from rankfm_tpu_torch.ops._build import BUILD_DIR
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ingest.cpp")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "ingest.cpp")
+_ORACLE_SRC = os.path.join(_HERE, "oracle.cpp")
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 MAP_REGIMES = ("bsearch", "table", "hash")   # `rfm_map_ids_regime`'s codes
@@ -67,7 +72,6 @@ def get_lib():
     with _lock:
         if _lib is not None or _tried:
             return _lib
-        _tried = True
         try:
             lib = _compile_and_load(_SRC, "ingest")
             lib.rfm_unique_sorted.restype = ctypes.c_int64
@@ -101,6 +105,9 @@ def get_lib():
             build_error = (e.stderr.decode(errors="replace")
                            if isinstance(e, subprocess.CalledProcessError)
                            else repr(e))
+        # only now: a caller that sees it outside the lock must also see
+        # the attempt's result
+        _tried = True
     return _lib
 
 
@@ -190,6 +197,93 @@ def ingest(u_raw, i_raw, uids, iids, prev_csr=None):
     kept = int(n_kept[0])
     return (pairs[:kept].copy(), keep[:n].astype(bool), offsets,
             items[:nnz].copy())
+
+
+_oracle_lock = threading.Lock()
+_oracle_lib = None
+_oracle_tried = False
+# why `get_oracle` returned None: the compiler's or the loader's message
+oracle_build_error = None
+
+
+def get_oracle():
+    """Load (building if necessary) the sequential reference-semantics SGD
+    oracle (oracle.cpp); None if no toolchain, with the reason in
+    ``oracle_build_error``. Test/validation infrastructure — no training
+    path calls this."""
+    global _oracle_lib, _oracle_tried, oracle_build_error
+    if _oracle_lib is not None or _oracle_tried:
+        return _oracle_lib
+    with _oracle_lock:
+        if _oracle_lib is not None or _oracle_tried:
+            return _oracle_lib
+        try:
+            lib = _compile_and_load(_ORACLE_SRC, "oracle")
+            lib.rfm_oracle_fit.restype = ctypes.c_int32
+            lib.rfm_oracle_fit.argtypes = (
+                [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                + [ctypes.c_void_p] * 10
+                + [ctypes.c_int32] * 5
+                + [ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_int32, ctypes.c_float,
+                   ctypes.c_int32, ctypes.c_int32, ctypes.c_uint64]
+                + [ctypes.c_void_p])
+            _oracle_lib = lib
+        except Exception as e:
+            _oracle_lib = None
+            oracle_build_error = (e.stderr.decode(errors="replace")
+                                  if isinstance(e, subprocess.CalledProcessError)
+                                  else repr(e))
+        _oracle_tried = True      # after the result, as in `get_lib`
+    return _oracle_lib
+
+
+def oracle_fit(interactions, sample_weight, offsets, items, x_uf, x_if,
+               weights, alpha, beta, learning_rate, learning_schedule,
+               learning_exponent, max_samples, epochs, seed):
+    """Run the sequential reference-semantics SGD oracle.
+
+    Every argument is a numpy array or a Python scalar: a caller holding
+    tensors passes ``t.cpu().numpy()``. ``weights`` is the
+    {w_i,w_if,v_u,v_i,v_uf,v_if} dict of INITIAL arrays (not mutated).
+    Returns ``(weights_out, ll_per_epoch)`` or None if the native oracle is
+    unavailable. The call releases the GIL while the oracle trains, so
+    several fits can run at once on threads.
+    """
+    lib = get_oracle()
+    if lib is None:
+        return None
+    inter = np.ascontiguousarray(interactions, dtype=np.int32)
+    sw = np.ascontiguousarray(sample_weight, dtype=np.float32)
+    off = np.ascontiguousarray(offsets, dtype=np.int32)
+    itm = np.ascontiguousarray(items, dtype=np.int32)
+    xu = np.ascontiguousarray(x_uf, dtype=np.float32)
+    xi = np.ascontiguousarray(x_if, dtype=np.float32)
+    w = {k: np.array(weights[k], dtype=np.float32, order="C")
+         for k in ("w_i", "w_if", "v_u", "v_i", "v_uf", "v_if")}
+    U, F = w["v_u"].shape
+    I = w["v_i"].shape[0]
+    P, Q = xu.shape[1], xi.shape[1]
+    # the library indexes every array by these sizes, unchecked
+    if (inter.ndim != 2 or inter.shape[1] != 2 or sw.shape != (len(inter),)
+            or off.shape != (U + 1,) or xu.shape[0] != U or xi.shape[0] != I
+            or w["w_i"].shape != (I,) or w["w_if"].shape != (Q,)
+            or w["v_i"].shape[1] != F or w["v_uf"].shape != (P, F)
+            or w["v_if"].shape != (Q, F) or len(itm) < off[-1]):
+        raise ValueError("oracle_fit: inconsistent shapes")
+    ll = np.zeros(epochs, dtype=np.float32)
+    rc = lib.rfm_oracle_fit(
+        _ptr(inter), _ptr(sw), len(inter), _ptr(off), _ptr(itm),
+        _ptr(xu), _ptr(xi),
+        _ptr(w["w_i"]), _ptr(w["w_if"]), _ptr(w["v_u"]), _ptr(w["v_i"]),
+        _ptr(w["v_uf"]), _ptr(w["v_if"]),
+        U, I, P, Q, F,
+        alpha, beta, learning_rate,
+        1 if learning_schedule == "invscaling" else 0, learning_exponent,
+        max_samples, epochs, seed, _ptr(ll))
+    if rc != 0:
+        raise FloatingPointError("oracle: weights went non-finite")
+    return w, ll
 
 
 def build_csr(users, items, num_users):

@@ -10,6 +10,9 @@ arrays compare bit for bit:
   positive-item block;
 * user histories become the blocked 16-bit membership pack
   (`pack_history`), pad items marked as members;
+* the chunks are dealt to batches by their fractional position in their
+  group (`deal_by_fraction`, where the JAX package deals them by rank), so
+  every batch holds every group at the group's own rate;
 * each epoch re-randomizes rows within their group with one single-key
   sort, rotates the batch order, and draws one size-weighted window block
   per chunk (`fused_epoch`); on a data-parallel mesh each rank runs its
@@ -307,6 +310,44 @@ def make_records_grouped(u, i, sw, num_users, num_items, batch_size, chunk,
     nb = nC_pad // nT
     return (rec, group, perm.reshape(nb, nT), ublk.reshape(nb, nT),
             iblk.reshape(nb, nT))
+
+
+def deal_by_fraction(layout, chunk, num_users, num_items, ub=None):
+    """`make_records_grouped`'s layout with its chunks dealt to the batches
+    by their fractional position in their group: chunk ``r`` of a group of
+    ``n`` chunks sits at ``(r + 1/2) / n``, and the chunks are visited in
+    that order (ties by group), so every batch holds every (user block,
+    item block) group at the group's own rate.
+
+    `make_records_grouped` (the JAX package's function, kept equal to it)
+    visits the chunks by their rank in the group first. Its first batches
+    then hold every group, its last ones only the largest: at the ML-1M
+    headline the smallest item block has all its positives in the first
+    16 of 23 batches and none in the last 7. An epoch rotates that order,
+    so every epoch replays the same burst from another starting point; the
+    hit rate after an epoch swung with the offset at which the epoch
+    stopped, and a fit ended outside the oracle's quality band at several
+    model seeds (`PERF.md` §6, the batch deal). ``rec`` and ``group`` are
+    unchanged; ``cids``, ``ublk`` and ``iblk`` are dealt anew (the padding
+    positions keep the all-guard chunk and block 0)."""
+    rec, group, cids, ublk, iblk = layout
+    nb, nT = cids.shape
+    NBI = item_pad(num_items) // block_size(num_items)
+    NG = num_user_blocks(num_users, ub) * NBI
+    gc = np.asarray(group)[::chunk]              # each chunk slot's group
+    cpg = np.bincount(gc[gc < NG], minlength=NG)
+    nC = int(cpg.sum())
+    gid_c = gc[:nC].astype(np.int64)             # real chunks come first
+    rank_c = np.arange(nC) - np.repeat(np.cumsum(cpg) - cpg, cpg)
+    frac = (2 * rank_c + 1) / (2.0 * cpg[gid_c])
+    perm = np.full(nb * nT, nb * nT - 1, dtype=np.int32)
+    perm[:nC] = np.lexsort((gid_c, frac))
+    ublk_d = np.zeros(nb * nT, dtype=np.int32)
+    iblk_d = np.zeros(nb * nT, dtype=np.int32)
+    ublk_d[:nC] = gid_c[perm[:nC]] // NBI
+    iblk_d[:nC] = gid_c[perm[:nC]] % NBI
+    return (rec, group, perm.reshape(nb, nT), ublk_d.reshape(nb, nT),
+            iblk_d.reshape(nb, nT))
 
 
 def unpack_record_cols(p0):

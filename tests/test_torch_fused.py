@@ -169,3 +169,82 @@ def test_philox_draws_uniform_and_distinct():
     _, r1 = _philox.chunk_draws(11, 2, 64, 256)
     want = (words.reshape(4, 64, 256, 2, 4)[2, :, 0, 1, 0] >> 8).float() * 2.0**-24
     np.testing.assert_array_equal(r1.numpy(), want.numpy())
+
+
+def _composition(layout, chunk, nbi, ng):
+    """``[nb, ng]``: chunks of each group in each batch, and each chunk
+    id's group."""
+    _, group, cids, ublk, iblk = layout
+    gc = np.asarray(group)[::chunk]
+    g_at = gc[np.asarray(cids)]                           # [nb, nT]
+    comp = np.stack([np.bincount(row[row < ng], minlength=ng)
+                     for row in g_at])
+    return comp, g_at
+
+
+@pytest.mark.parametrize("chunk,ub", [(256, 1024), (128, 256)])
+def test_deal_by_fraction_gives_every_batch_every_group(chunk, ub):
+    """At the full ML-1M headline log (both fit layouts): the deal visits
+    the chunks of `make_records_grouped` (the JAX package's deal) once
+    each, its block ids match each chunk's group, and every batch holds
+    every group within one chunk of the group's own rate, where the JAX
+    deal leaves the smallest item block out of its last batches."""
+    import torch_parity_common as tpc
+
+    train, _, _ = tpc.ml1m_headline_data()
+    U, I = int(train[:, 0].max()) + 1, int(train[:, 1].max()) + 1
+    jax_deal = tfused.make_records_grouped(
+        train[:, 0], train[:, 1], np.ones(len(train), np.float32), U, I,
+        32768, chunk, ub=ub)
+    dealt = tfused.deal_by_fraction(jax_deal, chunk, U, I, ub=ub)
+    nbi = tfused.item_pad(I) // tfused.block_size(I)
+    ng = tfused.num_user_blocks(U, ub) * nbi
+    for got, want in zip(dealt[:2], jax_deal[:2]):
+        assert got is want
+    np.testing.assert_array_equal(np.sort(dealt[2], axis=None),
+                                  np.sort(jax_deal[2], axis=None))
+    comp, g_at = _composition(dealt, chunk, nbi, ng)
+    real = g_at < ng
+    np.testing.assert_array_equal(dealt[3][real], g_at[real] // nbi)
+    np.testing.assert_array_equal(dealt[4][real], g_at[real] % nbi)
+    assert not dealt[3][~real].any() and not dealt[4][~real].any()
+    nb = comp.shape[0]
+    share = comp.sum(0) / nb                     # each group's rate
+    # within a chunk and a half of the group's rate (the last batch takes
+    # the remainder of every group, and the guards)
+    assert np.abs(comp[:-1] - share).max() <= 1.5
+    jcomp, _ = _composition(jax_deal, chunk, nbi, ng)
+    small = np.argmin(np.bincount(train[:, 1] // tfused.block_size(I)))
+    jblk = jcomp.reshape(nb, -1, nbi).sum(1)[:, small]
+    blk = comp.reshape(nb, -1, nbi).sum(1)[:, small]
+    print(f"chunk {chunk}: the smallest item block's chunks per batch, "
+          f"JAX deal {jblk.tolist()}, by fraction {blk.tolist()}")
+    assert (jblk == 0).sum() >= 5 and (blk[:-1] > 0).all()
+
+
+def test_fit_trains_on_the_fraction_deal(monkeypatch):
+    """A fused fit's cached record layouts are `deal_by_fraction` of
+    `make_records_grouped`, at both layouts of the chunk-tail schedule."""
+    from rankfm_tpu_torch import RankFM
+
+    calls = []
+    real = tfused.deal_by_fraction
+
+    def spy(layout, chunk, *a, **k):
+        out = real(layout, chunk, *a, **k)
+        calls.append((chunk, out))
+        return out
+
+    monkeypatch.setattr(tfused, "deal_by_fraction", spy)
+    rng = np.random.default_rng(3)
+    train = np.stack([np.repeat(np.arange(500), 30),
+                      rng.integers(0, 2300, 15000)], 1)
+    torch.set_num_threads(1)
+    m = RankFM(factors=4, loss="warp", max_samples=3, device="cpu").fit(
+        train, epochs=2)
+    assert m.last_fit_plan_.chunk_tail == 1
+    assert sorted(c for c, _ in calls) == [128, 256]
+    cached = list(m._rec_cache.values())
+    for _, out in calls:
+        assert any(all(np.array_equal(np.asarray(a), np.asarray(b))
+                       for a, b in zip(out[2:], c[2:])) for c in cached)

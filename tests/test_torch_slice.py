@@ -179,7 +179,40 @@ def test_whole_fit_matches_pallas_kernel(jax_fused_on_cpu, loss):
                                   jm.recommend(np.arange(16), n_items=3))
 
 
-def test_fit_quality_matches_sequential_oracle():
+BAND_CFG = dict(factors=16, loss="warp", max_samples=10,
+                learning_schedule="invscaling")
+BAND_GATE = {"hit_rate": 0.05, "discounted_cumulative_gain": 0.05,
+             "precision": 0.03, "recall": 0.03}
+
+
+@pytest.fixture(scope="module")
+def band_fit():
+    """``(train, test, metrics of the port's fit)``: the 10-epoch port fit
+    of the two oracle band tests below, made once, on one torch thread."""
+    import torch
+
+    rng = np.random.default_rng(1492)
+    train, test = make_latent_dataset(rng, n_users=600, n_items=2500,
+                                      sharp=2.0)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        tm = TorchRankFM(**BAND_CFG, device="cpu").fit(train, epochs=10)
+    finally:
+        torch.set_num_threads(n)
+    plan = tm.last_fit_plan_
+    assert plan.fused and plan.nblk == 3 and plan.chunk_tail == 1
+    return train, test, teval.compute(tm, test, metrics=METRICS, k=10)
+
+
+def _assert_in_band(got, want):
+    deltas = {m: got[m] - want[m] for m in METRICS}
+    print("port - oracle:", deltas)
+    for m, tol in BAND_GATE.items():
+        assert abs(deltas[m]) <= tol, (m, deltas)
+
+
+def test_fit_quality_matches_sequential_oracle(band_fit):
     """A 10-epoch port fit (3 window blocks: pure fused plus the chunk-tail)
     lands inside the fused quality band of the C++ sequential oracle run
     from the same data and initial weights (the oracle takes a JAX model
@@ -188,26 +221,33 @@ def test_fit_quality_matches_sequential_oracle():
     from rankfm_tpu import native
     if native.get_oracle() is None:
         pytest.skip("no C++ toolchain for the sequential oracle")
-    rng = np.random.default_rng(1492)
-    train, test = make_latent_dataset(rng, n_users=600, n_items=2500,
-                                      sharp=2.0)
-    cfg = dict(factors=16, loss="warp", max_samples=10,
-               learning_schedule="invscaling")
-    tm = TorchRankFM(**cfg, device="cpu").fit(train, epochs=10)
-    plan = tm.last_fit_plan_
-    assert plan.fused and plan.nblk == 3 and plan.chunk_tail == 1
-    got = teval.compute(tm, test, metrics=METRICS, k=10)
-    want = oracle_metrics(JaxRankFM(**cfg), train, test, epochs=10)
-    gate = {"hit_rate": 0.05, "discounted_cumulative_gain": 0.05,
-            "precision": 0.03, "recall": 0.03}
-    deltas = {m: got[m] - want[m] for m in METRICS}
-    print("port - oracle:", deltas)
-    for m, tol in gate.items():
-        assert abs(deltas[m]) <= tol, (m, deltas)
+    train, test, got = band_fit
+    _assert_in_band(got, oracle_metrics(JaxRankFM(**BAND_CFG), train, test,
+                                        epochs=10))
+
+
+def test_fit_quality_matches_port_sequential_oracle(band_fit):
+    """The same fit against the port's own oracle and harness
+    (`rankfm_tpu_torch.native`, `tests/torch_parity_common.py`), which
+    take a port model of the same config and no JAX."""
+    import torch_parity_common as tpc
+    from rankfm_tpu_torch import native
+    if native.get_oracle() is None:
+        pytest.skip("no C++ toolchain for the sequential oracle")
+    train, test, got = band_fit
+    _assert_in_band(got, tpc.oracle_metrics(
+        TorchRankFM(**BAND_CFG, device="cpu"), train, test, epochs=10))
 
 
 def test_port_imports_no_jax():
+    """No module of the port, not its oracle once built, not the port's
+    oracle harness imports JAX or the JAX package; nor does any example of
+    the port (read by its syntax tree: they run on the card)."""
+    import ast
+
+    root = Path(__file__).resolve().parents[1]
     code = ("import sys; before = set(sys.modules); "
+            "sys.path.insert(0, 'tests'); "
             "import rankfm_tpu_torch, rankfm_tpu_torch.ops.fused, "
             "rankfm_tpu_torch.ops._build, rankfm_tpu_torch.utils.convert, "
             "rankfm_tpu_torch.ops.training, rankfm_tpu_torch.ops.scatter, "
@@ -216,12 +256,27 @@ def test_port_imports_no_jax():
             "rankfm_tpu_torch.utils.observe, rankfm_tpu_torch.utils.data, "
             "rankfm_tpu_torch.parallel.mesh, rankfm_tpu_torch.parallel.train, "
             "rankfm_tpu_torch.parallel.fused, rankfm_tpu_torch.parallel.tp, "
-            "rankfm_tpu_torch.parallel.retrieval; "
+            "rankfm_tpu_torch.parallel.retrieval, torch_parity_common; "
             "rankfm_tpu_torch.native.get_lib(); "
+            "rankfm_tpu_torch.native.get_oracle(); "
             "bad = [m for m in set(sys.modules) - before if m == 'jax' or "
             "m.startswith(('jax.', 'rankfm_tpu.')) or m == 'rankfm_tpu']; "
             "print(bad, 'jax' in sys.modules); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120,
-                          cwd=Path(__file__).resolve().parents[1])
+                          text=True, timeout=120, cwd=root)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    examples = sorted((root / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 5, examples
+    for path in examples:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "rankfm_tpu"), (path,
+                                                                     name)
