@@ -35,10 +35,11 @@
 //   2. select_scatter, one block per row: read the row's pw and its counts,
 //      make the closed-form WARP/BPR choice (Philox draws only for the slots
 //      whose key can be finite; one block reduction for the key maximum; the
-//      slots at the maximum are listed and their rows summed with the lanes
-//      over (slot, column)), and atomically add the row's gradients and touch
-//      counts into a per-chunk f32 accumulator; with side features also the
-//      feature-table gradients and touch counts;
+//      slots at the maximum are listed in ascending order by ballots and one
+//      prefix over the warps, and their rows summed in a fixed order), and
+//      atomically add the row's gradients and touch counts into a per-chunk
+//      fixed-point accumulator; with side features also the feature-table
+//      gradients and touch counts;
 //   3. apply_updates, one warp per table row of the user block, the
 //      positive block and the window blocks, lanes over the columns (a warp
 //      reads the touch counts of its few rows together; most are zero): the
@@ -70,6 +71,18 @@
 // Two blocks per SM (128 registers a thread) give every row of a 256-row
 // chunk its own block in the selection; one or three blocks per SM, and
 // tiles of 128 slots, measured slower at every shape.
+//
+// Every sum is taken in an order fixed by the inputs, so a batch's output is
+// a function of its inputs alone, bit for bit, run after run: a block's sums
+// over the chosen slots run in slot order, and what several blocks add into
+// one accumulator element is quantised to 64-bit fixed point (scale 2^32:
+// 2.3e-10 resolution) and added with integer atomics, whose sum does not
+// depend on their order. An addend beyond `fix_lim` = 2^30 / C (so that the
+// C rows of a chunk cannot overflow an element) or not finite is not added:
+// the row's ll term becomes NaN, which the fit's divergence check reports.
+// The touch counts are whole numbers in f32 and exact in any order. (With f32
+// atomics a near-tie of the selection could flip from one run to the next and
+// move a table row by several percent.)
 //
 // No tensor cores: after tiling the chunk is latency-bound, and TF32 or bf16
 // `wgmma` keeps about three digits, while the selection turns on pw < 1 and
@@ -118,6 +131,9 @@ constexpr int kKS = kKT + 4;     // shared-memory row stride in words
 constexpr int kMaxNW = 64;       // windows per chunk the kernel takes
 constexpr int kApplyRows = 4;    // rows whose counts a warp reads together
 constexpr float kMargin = 1.0f;
+constexpr float kFix = 4294967296.0f;               // 2^32, the fixed point
+constexpr float kUnfix = 2.3283064365386963e-10f;   // 2^-32
+constexpr int kErrSharedMemory = -1;  // the selection's row does not fit
 
 static_assert(kThreads == 16 * 16, "16 x 16 threads over a score tile");
 
@@ -149,6 +165,10 @@ __device__ __forceinline__ float to_u01(uint32_t bits) {
   return (float)(bits >> 8) * 5.9604644775390625e-08f;
 }
 
+__device__ __forceinline__ float unfix(unsigned long long v) {
+  return __ll2float_rn((long long)v) * kUnfix;
+}
+
 // block-wide maximum; every thread gets the result
 __device__ float block_max(float v, float* red) {
 #pragma unroll
@@ -174,9 +194,9 @@ struct Feat {
   int P, Q;
   float* rep_u;   // [UB, D] x_uf @ tab_uf of the chunk's user block
   float* rep_i;   // [(1 + NW) * BLK, D] x_if @ tab_if: positive block, windows
-  float* g_uf;    // [P, D] gradient (cols < F)
+  unsigned long long* g_uf;  // [P, D] gradient (cols < F), fixed point
   float* cnt_uf;  // [P] touch counts
-  float* g_if;    // [Q, D] gradient (cols <= F)
+  unsigned long long* g_if;  // [Q, D] gradient (cols <= F), fixed point
   float* cnt_if;  // [Q] touch counts
   float* n_ok;    // [nT] each chunk's count of rows with a negative
 };
@@ -193,9 +213,10 @@ struct Args {
   const int* blk;
   const int* ublk;
   const int* iblk;
-  float* acc_u;  // [UB, D]
-  float* acc_p;  // [BLK, D]
-  float* acc_w;  // [NW * BLK, D]
+  unsigned long long* acc_u;  // [UB, D] fixed point (2^32)
+  unsigned long long* acc_p;  // [BLK, D]
+  unsigned long long* acc_w;  // [NW * BLK, D]
+  float fix_lim;              // the largest addend |x| taken
   float* ll_rows;
   int* chosen;
   int nT, C, UB, BLK, lg_blk, lg_lw, NW, M;
@@ -459,9 +480,9 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
   const int D = a.D, F = a.F, C = a.C, M = a.M, BLK = a.BLK;
   const int W2 = a.NW * BLK;
   float* s_key = smem;        // [NW*BLK] the selection key (16-byte aligned)
-  int* s_list = reinterpret_cast<int*>(s_key + W2);  // [NW*BLK] chosen slots
-  float* s_red = s_key + 2 * W2;  // [32] reduction scratch
-  float* s_u = s_red + 32;    // [D] user row
+  float* s_red = s_key + W2;  // [32] reduction scratch
+  float* s_part = s_red + 32;  // [3 * kThreads] partial sums, chosen slots
+  float* s_u = s_part + 3 * kThreads;  // [D] user row
   float* s_i = s_u + D;       // [D] positive row
   float* s_j = s_i + D;       // [D] sum of the chosen rows
   // side features only
@@ -471,11 +492,20 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
   float* s_xj = s_jr + D;     // [Q] sum of the chosen slots' x_if rows
   float* s_xi = s_xj + f.Q;   // [Q] the positive's x_if row
   float* s_xu = s_xi + f.Q;   // [P] the user's x_uf row
-  __shared__ int s_jmin;      // lowest chosen slot
-  __shared__ int s_n;         // number of chosen slots
-  const int tid = threadIdx.x;
+  // [NW*BLK] the chosen slots, ascending (NW*BLK <= 64 * 1024)
+  uint16_t* s_list = reinterpret_cast<uint16_t*>(s_xu + f.P);
+  __shared__ int s_wn[kWarps];  // chosen slots in each warp's segment
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* ll_rows = a.ll_rows + (size_t)c.k * C;
   int* chosen = a.chosen ? a.chosen + (size_t)c.k * C : nullptr;
+  // a fixed-point add; an addend out of range or not finite marks the row
+  bool bad = false;
+  auto add = [&](unsigned long long* dst, float x) {
+    if (!(fabsf(x) <= a.fix_lim))
+      bad = true;
+    else if (x != 0.f)
+      atomicAdd(dst, (unsigned long long)__float2ll_rn(x * kFix));
+  };
   for (int row = blockIdx.x; row < C; row += gridDim.x) {
     const int p0 = __ldg(c.rec + 2 * row);
     if (!((p0 >> 21) & 1)) {  // guard record: no reads, no updates
@@ -486,6 +516,7 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
       continue;
     }
     __syncthreads();  // the previous row's readers are done
+    bad = false;
     const float sw = __int_as_float(__ldg(c.rec + 2 * row + 1));
     const int u_loc = p0 & 1023;
     const int i_loc = ((p0 >> 10) & 2047) - 1;
@@ -495,25 +526,17 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
       const float u = __ldcg(a.tab_u + (size_t)u_abs * D + k);
       s_u[k] = u;
       s_i[k] = __ldcg(a.tab_i + (size_t)i_abs * D + k);
-      s_j[k] = 0.f;
       if constexpr (FEAT) {
         s_ua[k] = u + (UF ? __ldcg(f.rep_u + (size_t)u_loc * D + k) : 0.f);
         s_ir[k] = IF ? __ldcg(f.rep_i + (size_t)i_loc * D + k) : 0.f;
-        s_jr[k] = 0.f;
       }
     }
     if constexpr (IF)
-      for (int q = tid; q < f.Q; q += kThreads) {
-        s_xj[q] = 0.f;
+      for (int q = tid; q < f.Q; q += kThreads)
         s_xi[q] = __ldg(f.x_if + (size_t)i_abs * f.Q + q);
-      }
     if constexpr (UF)
       for (int p = tid; p < f.P; p += kThreads)
         s_xu[p] = __ldg(f.x_uf + (size_t)u_abs * f.P + p);
-    if (tid == 0) {
-      s_jmin = 0x7fffffff;
-      s_n = 0;
-    }
     // what score_tiles left for this row
     const float4* pw_row =
         reinterpret_cast<const float4*>(a.pw + (size_t)row * W2);
@@ -586,33 +609,81 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
     mx = block_max(mx, s_red);
 
     // the chosen slots (exact ties split evenly: keys off the Bernoulli
-    // subset are quantised by the 1e6 offset, so ties can be many), listed,
-    // then their rows summed with the lanes over (slot, column)
-    if (mx > -INFINITY) {
-      for (int s = tid; s < W2; s += kThreads) {
-        if (s_key[s] == mx) {
-          s_list[atomicAdd(&s_n, 1)] = s;
-          atomicMin(&s_jmin, s);
+    // subset are quantised by the 1e6 offset, so ties can be many), listed
+    // in ascending order: each warp counts the ties of its own contiguous
+    // segment of slots with ballots, then lists them after those of the
+    // warps before it
+    const int seg = ((W2 + kWarps - 1) / kWarps + 31) & ~31;
+    const int lo = min(warp * seg, W2), hi = min(lo + seg, W2);
+    int mine = 0;
+    if (mx > -INFINITY)
+      for (int s0 = lo; s0 < hi; s0 += 32) {
+        const int s = s0 + lane;
+        mine += __popc(__ballot_sync(0xffffffffu, s < hi && s_key[s] == mx));
+      }
+    if (lane == 0) s_wn[warp] = mine;
+    __syncthreads();
+    int off = 0, n_j = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      off += w < warp ? s_wn[w] : 0;
+      n_j += s_wn[w];
+    }
+    if (mine)
+      for (int s0 = lo; s0 < hi; s0 += 32) {
+        const int s = s0 + lane;
+        const bool tie = s < hi && s_key[s] == mx;
+        const unsigned b = __ballot_sync(0xffffffffu, tie);
+        if (tie) s_list[off + __popc(b & ((1u << lane) - 1u))] = (uint16_t)s;
+        off += __popc(b);
+      }
+    __syncthreads();
+
+    // the chosen rows summed in a fixed order: thread (g, k) adds list
+    // entries g, g + G, g + 2G, ... of column k, then the G partials of a
+    // column are added in g order (the x_if rows likewise over Q columns)
+    const int G = kThreads / D;
+    if (tid < G * D) {
+      const int g = tid / D, k = tid % D;
+      float sj = 0.f, sjr = 0.f;
+      for (int e = g; e < n_j; e += G) {
+        const int s = s_list[e];
+        const int item = c.blk[s >> a.lg_blk] * BLK + (s & (BLK - 1));
+        sj += __ldcg(a.tab_i + (size_t)item * D + k);
+        if constexpr (IF) sjr += __ldcg(f.rep_i + (size_t)(BLK + s) * D + k);
+      }
+      s_part[tid] = sj;
+      if constexpr (IF) s_part[kThreads + tid] = sjr;
+    }
+    const int GQ = IF ? kThreads / f.Q : 0;
+    if constexpr (IF) {
+      if (tid < GQ * f.Q) {
+        const int g = tid / f.Q, q = tid % f.Q;
+        float sx = 0.f;
+        for (int e = g; e < n_j; e += GQ) {
+          const int s = s_list[e];
+          const int item = c.blk[s >> a.lg_blk] * BLK + (s & (BLK - 1));
+          sx += __ldg(f.x_if + (size_t)item * f.Q + q);
         }
+        s_part[2 * kThreads + tid] = sx;
       }
     }
     __syncthreads();
-    const int n_j = s_n;
-    for (int e = tid; e < n_j * D; e += kThreads) {
-      const int s = s_list[e / D], k = e % D;
-      const int item = c.blk[s >> a.lg_blk] * BLK + (s & (BLK - 1));
-      atomicAdd(&s_j[k], __ldcg(a.tab_i + (size_t)item * D + k));
-      if constexpr (IF)
-        atomicAdd(&s_jr[k], __ldcg(f.rep_i + (size_t)(BLK + s) * D + k));
-    }
-    if constexpr (IF) {
-      for (int e = tid; e < n_j * f.Q; e += kThreads) {
-        const int s = s_list[e / f.Q], q = e % f.Q;
-        const int item = c.blk[s >> a.lg_blk] * BLK + (s & (BLK - 1));
-        const float xv = __ldg(f.x_if + (size_t)item * f.Q + q);
-        if (xv != 0.f) atomicAdd(&s_xj[q], xv);
+    for (int k = tid; k < D; k += kThreads) {
+      float sj = 0.f, sjr = 0.f;
+      for (int g = 0; g < G; ++g) {
+        sj += s_part[g * D + k];
+        if constexpr (IF) sjr += s_part[kThreads + g * D + k];
       }
+      s_j[k] = sj;
+      if constexpr (FEAT) s_jr[k] = sjr;
     }
+    if constexpr (IF)
+      for (int q = tid; q < f.Q; q += kThreads) {
+        float sx = 0.f;
+        for (int g = 0; g < GQ; ++g) sx += s_part[2 * kThreads + g * f.Q + q];
+        s_xj[q] = sx;
+      }
     __syncthreads();
     const float cnt = (float)n_j;
     const float inv = cnt > 0.f ? 1.f / cnt : 0.f;
@@ -637,22 +708,21 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
     // With side features the user gradient is d * (i_tot - j_tot) and the
     // item gradients carry the augmented user row (its col F is still 1).
     const float* s_uu = FEAT ? s_ua : s_u;
-    float* au = a.acc_u + (size_t)u_loc * D;
+    unsigned long long* au = a.acc_u + (size_t)u_loc * D;
     for (int k = tid; k <= F; k += kThreads) {
       float g = 1.f;
       if (k < F) {
         g = FEAT ? d * ((s_i[k] + s_ir[k]) - (s_j[k] + s_jr[k]) * inv)
                  : d * (s_i[k] - s_j[k] * inv);
       }
-      atomicAdd(&au[k], g);
+      add(&au[k], g);
     }
-    float* ap = a.acc_p + (size_t)i_loc * D;
+    unsigned long long* ap = a.acc_p + (size_t)i_loc * D;
     for (int k = tid; k < D; k += kThreads)
-      atomicAdd(&ap[k], k <= F ? d * s_uu[k] : 1.f);
+      add(&ap[k], k <= F ? d * s_uu[k] : 1.f);
     for (int e = tid; e < n_j * D; e += kThreads) {
       const int s = s_list[e / D], k = e % D;
-      atomicAdd(&a.acc_w[(size_t)s * D + k],
-                k <= F ? -d * s_uu[k] * inv : inv);
+      add(&a.acc_w[(size_t)s * D + k], k <= F ? -d * s_uu[k] * inv : inv);
     }
     if constexpr (FEAT) {
       // feature tables: one touch per row with a negative
@@ -664,7 +734,7 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
             const int q = e / (F + 1), k = e % (F + 1);
             const float diff = s_xi[q] - s_xj[q] * inv;
             if (diff != 0.f) {
-              atomicAdd(&f.g_if[(size_t)q * D + k], diff * (d * s_u[k]));
+              add(&f.g_if[(size_t)q * D + k], diff * (d * s_u[k]));
               if (k == 0) atomicAdd(&f.cnt_if[q], 1.f);
             }
           }
@@ -675,17 +745,18 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
             const int p = e / F, k = e % F;
             const float xv = s_xu[p];
             if (xv != 0.f) {
-              atomicAdd(&f.g_uf[(size_t)p * D + k],
-                        xv * (d * (s_i[k] - s_j[k] * inv)));
+              add(&f.g_uf[(size_t)p * D + k],
+                  xv * (d * (s_i[k] - s_j[k] * inv)));
               if (k == 0) atomicAdd(&f.cnt_uf[p], 1.f);
             }
           }
         }
       }
     }
+    const int any_bad = __syncthreads_or(bad);
     if (tid == 0) {
-      ll_rows[row] = ll;
-      if (chosen) chosen[row] = cnt > 0.f ? s_jmin : -1;
+      ll_rows[row] = any_bad ? NAN : ll;
+      if (chosen) chosen[row] = n_j > 0 ? (int)s_list[0] : -1;
     }
   }
 }
@@ -702,18 +773,19 @@ __device__ __forceinline__ void decay_factors(float cnt, float eta, float cdec,
 }
 
 // One warp, lanes over the columns: the first `ncols` columns of table row
-// `t` take `cnt` touches with the accumulated gradient `g`, whose D columns
-// are zeroed. Every lane has read `cnt` (it may be a column of `g`) before
-// the call.
-__device__ __forceinline__ void decay_row(float* t, float* g, float cnt,
+// `t` take `cnt` touches with the accumulated gradient `g` (fixed point),
+// whose D columns are zeroed. Every lane has read `cnt` (it may be a column
+// of `g`) before the call.
+__device__ __forceinline__ void decay_row(float* t, unsigned long long* g,
+                                          float cnt,
                                           int ncols, int D, float eta,
                                           float cdec, float ldec, int lane) {
   float ck, gf;
   decay_factors(cnt, eta, cdec, ldec, &ck, &gf);
   __syncwarp();
   for (int k = lane; k < D; k += 32) {
-    if (k < ncols) t[k] = __ldcg(t + k) * ck + gf * __ldcg(g + k);
-    g[k] = 0.f;
+    if (k < ncols) t[k] = __ldcg(t + k) * ck + gf * unfix(__ldcg(g + k));
+    g[k] = 0ull;
   }
   __syncwarp();
 }
@@ -745,7 +817,7 @@ __device__ void apply_updates(const Args& a, const Chunk& c) {
     float cnts[kApplyRows];
 #pragma unroll
     for (int i = 0; i < kApplyRows; ++i)
-      cnts[i] = __ldcg(count_of(min(p0 + i * n_warps, rows - 1)));
+      cnts[i] = unfix(__ldcg(count_of(min(p0 + i * n_warps, rows - 1))));
 #pragma unroll
     for (int i = 0; i < kApplyRows; ++i) {
       const int p = p0 + i * n_warps;
@@ -772,8 +844,8 @@ __device__ void apply_updates(const Args& a, const Chunk& c) {
       if (last) continue;
       for (int q = q0 + 1; q <= NW; ++q) {  // the block was drawn again
         if (s_base[q] != b) continue;
-        float* g = a.acc_u + (size_t)(UB + q * BLK + r) * D;
-        const float cnt = __ldcg(g + F + 1);
+        unsigned long long* g = a.acc_u + (size_t)(UB + q * BLK + r) * D;
+        const float cnt = unfix(__ldcg(g + F + 1));
         if (cnt != 0.f) decay_row(t, g, cnt, F + 1, D, a.eta, cdec, ldec, lane);
       }
     }
@@ -790,7 +862,7 @@ __device__ void apply_updates(const Args& a, const Chunk& c) {
       const bool is_uf = p < np;
       const int r = is_uf ? p : p - np;
       float* t = (is_uf ? f.tab_uf : f.tab_if) + (size_t)r * D;
-      float* g = (is_uf ? f.g_uf : f.g_if) + (size_t)r * D;
+      unsigned long long* g = (is_uf ? f.g_uf : f.g_if) + (size_t)r * D;
       float* cntp = (is_uf ? f.cnt_uf : f.cnt_if) + r;
       const float cnt = *cntp;
       const float n_ok = is_uf ? 0.f : f.n_ok[c.k];
@@ -802,8 +874,8 @@ __device__ void apply_updates(const Args& a, const Chunk& c) {
         }
         float ck, gf;
         decay_factors(k == F ? n_ok : cnt, a.eta, cdf, ldf, &ck, &gf);
-        t[k] = t[k] * ck + gf * g[k];
-        g[k] = 0.f;
+        t[k] = t[k] * ck + gf * unfix(g[k]);
+        g[k] = 0ull;
       }
       if (lane == 0) *cntp = 0.f;
     }
@@ -880,37 +952,55 @@ cudaError_t persistent_grid(const void* kernel, size_t smem, int* blocks) {
   return cudaSuccess;
 }
 
+// Shared memory of one block: the larger of the score stage and the
+// selection's row (its keys, its list of chosen slots as 16-bit indices,
+// the partial sums and the rows it reads).
+size_t smem_bytes(int D, int W2, int P, int Q, bool feat) {
+  const size_t score =
+      (size_t)((2 * kTM + kTN) * kKS + 2 * kTM) * sizeof(float);
+  size_t select = (size_t)(W2 + 32 + 3 * kThreads + 3 * D) * sizeof(float) +
+                  (size_t)W2 * sizeof(uint16_t);
+  if (feat) select += (size_t)(3 * D + 3 * Q + P) * sizeof(float);
+  return score > select ? score : select;
+}
+
 template <bool UF, bool IF>
-int run_batch(Args a, float* acc, float* facc, cudaStream_t st) {
+int run_batch(Args a, unsigned long long* acc, float* facc, cudaStream_t st) {
   const int D = a.D, W2 = a.NW * a.BLK;
-  if (a.NW > kMaxNW || D > 128) return (int)cudaErrorInvalidValue;
+  if (a.NW > kMaxNW || D > 128 || a.f.Q > kThreads)
+    return (int)cudaErrorInvalidValue;
   a.lg_blk = ilog2(a.BLK);
   a.lg_lw = ilog2(a.BLK >> 4);
+  // at most C addends reach one accumulator element in a chunk
+  a.fix_lim = 1073741824.0f / (float)a.C;
+  // acc: the user block, the positive block and the windows, then (side
+  // features) g_uf [P * D] and g_if [Q * D]
   a.acc_u = acc;
   a.acc_p = a.acc_u + (size_t)a.UB * D;
   a.acc_w = a.acc_p + (size_t)a.BLK * D;
   if constexpr (UF || IF) {
-    // facc: rep_u [nu * D], rep_i [ni * D], g_uf [P * D], cnt_uf [P],
-    // g_if [Q * D], cnt_if [Q], n_ok [nT]
+    // facc: rep_u [nu * D], rep_i [ni * D], cnt_uf [P], cnt_if [Q], n_ok [nT]
     Feat& f = a.f;
     const int nu = UF ? a.UB : 0, ni = IF ? (1 + a.NW) * a.BLK : 0;
     f.rep_u = facc;
     f.rep_i = f.rep_u + (size_t)nu * D;
-    f.g_uf = f.rep_i + (size_t)ni * D;
-    f.cnt_uf = f.g_uf + (size_t)f.P * D;
-    f.g_if = f.cnt_uf + f.P;
-    f.cnt_if = f.g_if + (size_t)f.Q * D;
+    f.cnt_uf = f.rep_i + (size_t)ni * D;
+    f.cnt_if = f.cnt_uf + f.P;
     f.n_ok = f.cnt_if + f.Q;
+    f.g_uf = a.acc_w + (size_t)W2 * D;
+    f.g_if = f.g_uf + (size_t)f.P * D;
   }
-  // shared memory: the larger of the score stage and the selection's row
-  size_t score = (size_t)((2 * kTM + kTN) * kKS + 2 * kTM) * sizeof(float);
-  size_t select = (size_t)(3 * D + 32 + 2 * W2) * sizeof(float);
-  if constexpr (UF || IF)
-    select += (size_t)(3 * D + 3 * a.f.Q + a.f.P) * sizeof(float);
-  const size_t smem = score > select ? score : select;
+  const size_t smem = smem_bytes(D, W2, a.f.P, a.f.Q, UF || IF);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > (size_t)optin) return kErrSharedMemory;
   const void* kernel =
       reinterpret_cast<const void*>(fused_batch_kernel<UF, IF>);
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
@@ -926,8 +1016,9 @@ int run_batch(Args a, float* acc, float* facc, cudaStream_t st) {
 }  // namespace
 
 // One batch of nT chunks in one cooperative launch on `stream`. `acc` is a
-// zeroed f32 scratch of (UB + (1 + NW) * BLK) * D floats (zero again when
-// the kernel ends); `pw` an f32 scratch of C * NW * BLK + C floats (any
+// zeroed 64-bit scratch of (UB + (1 + NW) * BLK + P + Q) * D words (P and Q
+// only with side features; zero again when the kernel ends), the fixed-point
+// accumulator; `pw` an f32 scratch of C * NW * BLK + C floats (any
 // contents); `cnt` a zeroed int scratch of 2 * C (zero again when the kernel
 // ends); `ll_rows` gets each row's log-likelihood term and, when not null,
 // `chosen` each row's lowest chosen window slot (-1: none); when not null,
@@ -935,18 +1026,21 @@ int run_batch(Args a, float* acc, float* facc, cudaStream_t st) {
 // NW <= 64 and D <= 128.
 //
 // Side features: `x_uf` [U_pad, P] with `tab_uf` [P, D] and/or `x_if`
-// [I_pad, Q] with `tab_if` [Q, D] (null and 0 when absent); `facc` is then a
-// zeroed f32 scratch of (nu + ni + P + Q) * D + P + Q + nT floats, nu = UB
-// with user features, ni = (1 + NW) * BLK with item features; `dreg_f` is
-// eta * 2 * beta. The feature tables are updated in place.
+// [I_pad, Q] with `tab_if` [Q, D] (null and 0 when absent, Q <= 256);
+// `facc` is then a zeroed f32 scratch of (nu + ni) * D + P + Q + nT floats,
+// nu = UB with user features, ni = (1 + NW) * BLK with item features;
+// `dreg_f` is eta * 2 * beta. The feature tables are updated in place.
 //
-// Returns the CUDA error of the launch, 0 when it was accepted. The library
+// Returns the CUDA error of the launch, 0 when it was accepted, or -1 when
+// the selection's row needs more shared memory than a block of this card
+// has (`rfm_fused_smem` says how much). The library
 // is compiled with -DRFM_UF=0|1 -DRFM_IF=0|1 and holds that one instantiation
 // of the kernel; it refuses the other three.
 extern "C" int rfm_fused_batch(float* tab_u, float* tab_i, int D, int F,
                                const int* rec, const int* packed, int W,
                                const int* blk, const int* ublk,
-                               const int* iblk, float* acc, float* ll_rows,
+                               const int* iblk, unsigned long long* acc,
+                               float* ll_rows,
                                int* chosen,
                                int nT, int C, int UB, int BLK, int NW, int M,
                                float nm1, float log_I, float mult_bpr,
@@ -995,6 +1089,20 @@ extern "C" int rfm_fused_batch(float* tab_u, float* tab_i, int D, int F,
   if ((x_uf != nullptr) != (RFM_UF != 0) || (x_if != nullptr) != (RFM_IF != 0))
     return (int)cudaErrorInvalidValue;
   return run_batch<RFM_UF != 0, RFM_IF != 0>(a, acc, facc, st);
+}
+
+// The shared memory one block of the batch kernel needs at these shapes
+// (`need`) and what a block of the current card may have (`limit`), bytes.
+extern "C" int rfm_fused_smem(int D, int NW, int BLK, int P, int Q,
+                              int* need, int* limit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return (int)err;
+  *need = (int)smem_bytes(D, NW * BLK, P, Q, P > 0 || Q > 0);
+  return 0;
 }
 
 // What a phase boundary costs, for the choice between one persistent launch

@@ -33,30 +33,31 @@
 //
 // - table_update_sorted (B3; tables of many more rows than updates): work
 //   and traffic O(B2 * F), independent of N; no sort, no second copy of
-//   `upd`. The update is linear in the row, ck * tab + sum_p(gf * upd_p)
-//   with ck and gf = eta * f functions of the row's touch count only, so it
-//   is applied in place. Phases: `count` (each live update adds its validity
-//   into cnt[row] and bids for the row with atomicMax(claim[row], p + 1):
-//   the claim is apart from the count, so a row of validity 0 is claimed
-//   too); `scale` (the update that holds the claim multiplies the row and
-//   its bias by ck, stores gf for the row, and zeroes cnt[row] and
-//   claim[row] for the next call); `add` (every live update adds
-//   gf * upd[p, :] into the row with `red`, two floats at a time where F is
-//   even and the rows are 8-byte aligned). One warp per update. A row that
-//   takes every update costs contended atomics at one set of L2 addresses,
-//   not a serial walk.
+//   `upd`. Phases: `count` (each live update bids for its row with
+//   atomicMax(claim[row], p + 1): the update of the highest index holds the
+//   row's claim, a row of validity 0 too); `add` (every live update adds its
+//   row, F + 2 columns, into the accumulator row of its row's claimant,
+//   `acc [B2, F+3]`: the scratch grows with the updates, not the table);
+//   `finalize` (the claimant computes ck and gf from the summed touch count,
+//   writes ck * tab + gf * sum to the row and its bias, and clears its
+//   accumulator row and the claim for the next call). One warp per update. A
+//   row that takes every update costs contended atomics at one set of L2
+//   addresses, not a serial walk.
 // - table_update_dense (B2; small tables, many updates per row): `scatter`
-//   (one warp per update: the row is added into the persistent f32
-//   accumulator `acc [N, F+2]` with `red`, four floats at a time where F+2
-//   is a multiple of 4 and the rows are 16-byte aligned, else two, else
-//   one), a grid barrier, `decay` (one warp per table row: a row whose
-//   accumulator is not all zero is rewritten, and its accumulator zeroed
-//   for the next call). One barrier instead of two, at the cost of a pass
-//   over N rows; `scatter._regime` sends only small tables here.
+//   (one warp per update: the row is added into the persistent accumulator
+//   `acc [N, F+3]`), a grid barrier, `decay` (one warp per table row: a row
+//   whose accumulator is not all zero is rewritten, and its accumulator
+//   zeroed for the next call). One barrier instead of two, at the cost of a
+//   pass over N rows; `scatter._regime` sends only small tables here.
 //
-// Both sum a row's updates with atomics, in an order that changes from run
-// to run; the in-place form rounds differently from ck * tab + gf * sum by
-// a few ulp.
+// Both sum in 64-bit fixed point (scale 2^32, 2.3e-10 resolution) with
+// integer atomics, whose sum does not depend on their order: the result is a
+// function of the inputs alone, bit for bit, run after run, and rounds once,
+// as ck * tab + gf * sum does in the plain version. An accumulator row holds
+// F factor sums, the bias sum, the touch count and a flag: an addend beyond
+// `lim` = 2^30 / B2 (so that B2 updates cannot overflow a sum) or not finite
+// is not added but flags the row, which the kernel then writes as NaN, as
+// the f32 sum would have become; the fit's divergence check reports it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -70,6 +71,8 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kFix = 4294967296.0f;               // 2^32, the fixed point
+constexpr float kUnfix = 2.3283064365386963e-10f;   // 2^-32
 
 __device__ __forceinline__ void decay_factors(float cnt, float eta, float c,
                                               float* ck, float* gf) {
@@ -79,115 +82,94 @@ __device__ __forceinline__ void decay_factors(float cnt, float eta, float c,
   *gf = eta * f;
 }
 
-// VEC floats of `src`, scaled by `s`, added into `dst` by one reduction at
-// the L2 (the result is not read, so no value travels back)
-template <int VEC>
-__device__ __forceinline__ void red_add(float* dst, const float* src, float s);
-
-template <>
-__device__ __forceinline__ void red_add<1>(float* dst, const float* src,
-                                           float s) {
-  atomicAdd(dst, s * __ldg(src));
+__device__ __forceinline__ float unfix(unsigned long long v) {
+  return __ll2float_rn((long long)v) * kUnfix;
 }
 
-template <>
-__device__ __forceinline__ void red_add<2>(float* dst, const float* src,
-                                           float s) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(src));
-  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(s * v.x, s * v.y));
+// Update row `p` (F + 2 floats: gradient, bias gradient, validity) added
+// into the accumulator row `acc` (F + 3 words) by the lanes of one warp;
+// the bias column only with a bias. An addend out of range or not finite
+// sets the flag word instead.
+__device__ __forceinline__ void add_row(unsigned long long* acc,
+                                        const float* __restrict__ u, int F,
+                                        bool with_bias, float lim, int lane) {
+  bool bad = false;
+  for (int col = lane; col < F + 2; col += 32) {
+    if (col == F && !with_bias) continue;
+    const float x = __ldg(u + col);
+    if (!(fabsf(x) <= lim))
+      bad = true;
+    else if (x != 0.f)
+      atomicAdd(acc + col, (unsigned long long)__float2ll_rn(x * kFix));
+  }
+  if (__any_sync(kFull, bad) && lane == 0) atomicOr(acc + F + 2, 1ull);
 }
 
-template <>
-__device__ __forceinline__ void red_add<4>(float* dst, const float* src,
-                                           float s) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(src));
-  atomicAdd(reinterpret_cast<float4*>(dst),
-            make_float4(s * v.x, s * v.y, s * v.z, s * v.w));
+// Table row `t` (and its bias) from its accumulator row `acc`, which is then
+// cleared, by the lanes of one warp.
+__device__ __forceinline__ void finish_row(float* t, float* bias,
+                                           unsigned long long* acc, int F,
+                                           float eta, float c, int lane) {
+  const bool bad = __ldcg(acc + F + 2) != 0ull;
+  float ck, gf;
+  decay_factors(unfix(__ldcg(acc + F + 1)), eta, c, &ck, &gf);
+  for (int col = lane; col < F; col += 32)
+    t[col] = bad ? NAN : ck * t[col] + gf * unfix(__ldcg(acc + col));
+  if (lane == 0 && bias)
+    *bias = bad ? NAN : ck * *bias + gf * unfix(__ldcg(acc + F));
+  __syncwarp();
+  for (int col = lane; col < F + 3; col += 32) acc[col] = 0ull;
 }
 
-// `n` floats of `src` times `s` into `dst` (n a multiple of VEC), by the
-// lanes of one warp
-template <int VEC>
-__device__ __forceinline__ void red_row(float* dst, const float* src, int n,
-                                        float s, int lane) {
-  for (int k = lane * VEC; k < n; k += 32 * VEC)
-    red_add<VEC>(dst + k, src + k, s);
-}
-
-// B3. `cnt [N]` and `claim [N]` are all-zero on entry and on exit; `gfs [N]`
-// holds anything. Every thread passes both grid barriers: the loops are
-// grid-stride and nothing returns early.
-template <int VEC>
+// B3. `claim [N]` and `acc [B2, F+3]` are all-zero on entry and on exit.
+// Every thread passes both grid barriers: the loops are grid-stride and
+// nothing returns early.
 __global__ void __launch_bounds__(kThreads)
 inplace_update(float* tab, float* bias, int N, int F,
                const int* __restrict__ idx, const float* __restrict__ upd,
-               int B2, float* cnt, int* claim, float* gfs, float eta,
-               float c) {
+               int B2, int* claim, unsigned long long* acc, float eta, float c,
+               float lim) {
   cg::grid_group grid = cg::this_grid();
-  const int D = F + 2;
+  const int D = F + 2, A = F + 3;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int threads = gridDim.x * blockDim.x;
   const int lane = threadIdx.x & 31;
 
-  // count: one thread per update
+  // count: one thread per update bids for its row
   for (int p = tid; p < B2; p += threads) {
     const int row = idx[p];
-    if ((unsigned)row < (unsigned)N) {
-      atomicAdd(&cnt[row], upd[(size_t)p * D + F + 1]);
-      atomicMax(&claim[row], p + 1);
-    }
+    if ((unsigned)row < (unsigned)N) atomicMax(&claim[row], p + 1);
   }
   grid.sync();
 
-  // scale: one warp per update. The update that holds its row's claim
-  // multiplies the row by ck, leaves gf for the row's updates, and clears
-  // the row's count and claim (no other update reads the count in this
-  // phase, and a cleared claim is no other update's either)
-  for (int p = tid >> 5; p < B2; p += threads >> 5) {
-    const int row = idx[p];
-    if ((unsigned)row >= (unsigned)N || __ldcg(&claim[row]) != p + 1) continue;
-    float ck, gf;
-    decay_factors(__ldcg(&cnt[row]), eta, c, &ck, &gf);
-    float* t = tab + (size_t)row * F;
-    if (VEC == 2) {
-      float2* t2 = reinterpret_cast<float2*>(t);
-      for (int k = lane; k < F / 2; k += 32) {
-        float2 v = t2[k];
-        t2[k] = make_float2(ck * v.x, ck * v.y);
-      }
-    } else {
-      for (int col = lane; col < F; col += 32) t[col] *= ck;
-    }
-    __syncwarp();
-    if (lane == 0) {
-      if (bias) bias[row] *= ck;
-      gfs[row] = gf;
-      cnt[row] = 0.f;
-      claim[row] = 0;
-    }
-  }
-  grid.sync();
-
-  // add: every live update adds gf * upd[p, :F] into its row, gf * upd[p, F]
-  // into its bias
+  // add: one warp per update, into its row's claimant's accumulator row
   for (int p = tid >> 5; p < B2; p += threads >> 5) {
     const int row = idx[p];
     if ((unsigned)row >= (unsigned)N) continue;
-    const float gf = __ldcg(&gfs[row]);
-    const float* u = upd + (size_t)p * D;
-    red_row<VEC>(tab + (size_t)row * F, u, F, gf, lane);
-    if (lane == 31 && bias) red_add<1>(bias + row, u + F, gf);
+    const int q = __ldcg(&claim[row]) - 1;
+    add_row(acc + (size_t)q * A, upd + (size_t)p * D, F, bias != nullptr, lim,
+            lane);
+  }
+  grid.sync();
+
+  // finalize: the claimant of each row writes it and clears its scratch (no
+  // other update of the row reads the claim as its own once it is cleared)
+  for (int p = tid >> 5; p < B2; p += threads >> 5) {
+    const int row = idx[p];
+    if ((unsigned)row >= (unsigned)N || __ldcg(&claim[row]) != p + 1) continue;
+    finish_row(tab + (size_t)row * F, bias ? bias + row : nullptr,
+               acc + (size_t)p * A, F, eta, c, lane);
+    if (lane == 0) claim[row] = 0;
   }
 }
 
-// B2. `acc [N, F+2]` is all-zero on entry and on exit.
-template <int VEC>
+// B2. `acc [N, F+3]` is all-zero on entry and on exit.
 __global__ void __launch_bounds__(kThreads)
 dense_update(float* tab, float* bias, int N, int F,
              const int* __restrict__ idx, const float* __restrict__ upd,
-             int B2, float* acc, float eta, float c) {
+             int B2, unsigned long long* acc, float eta, float c, float lim) {
   cg::grid_group grid = cg::this_grid();
-  const int D = F + 2;
+  const int D = F + 2, A = F + 3;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int threads = gridDim.x * blockDim.x;
   const int lane = threadIdx.x & 31;
@@ -196,24 +178,19 @@ dense_update(float* tab, float* bias, int N, int F,
   for (int p = tid >> 5; p < B2; p += threads >> 5) {
     const int row = idx[p];
     if ((unsigned)row >= (unsigned)N) continue;
-    red_row<VEC>(acc + (size_t)row * D, upd + (size_t)p * D, D, 1.f, lane);
+    add_row(acc + (size_t)row * A, upd + (size_t)p * D, F, bias != nullptr,
+            lim, lane);
   }
   grid.sync();
 
   // decay: one warp per table row; consumes and clears the accumulator
   for (int row = tid >> 5; row < N; row += threads >> 5) {
-    float* a = acc + (size_t)row * D;
+    unsigned long long* a = acc + (size_t)row * A;
     bool touched = false;
-    for (int col = lane; col < D; col += 32) touched |= __ldcg(a + col) != 0.f;
+    for (int col = lane; col < A; col += 32) touched |= __ldcg(a + col) != 0ull;
     if (!__any_sync(kFull, touched)) continue;
-    float ck, gf;
-    decay_factors(__ldcg(a + F + 1), eta, c, &ck, &gf);
-    float* t = tab + (size_t)row * F;
-    for (int col = lane; col < F; col += 32)
-      t[col] = ck * t[col] + gf * __ldcg(a + col);
-    if (lane == 0 && bias) bias[row] = ck * bias[row] + gf * __ldcg(a + F);
-    __syncwarp();
-    for (int col = lane; col < D; col += 32) a[col] = 0.f;
+    finish_row(tab + (size_t)row * F, bias ? bias + row : nullptr, a, F, eta,
+               c, lane);
   }
 }
 
@@ -253,55 +230,47 @@ int launch(const void* kernel, int* cache, long long want_threads, void** args,
   return (int)cudaGetLastError();
 }
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 }  // namespace
 
-// B3 in place: `cnt` (f32), `claim` (int32) and `gfs` (f32) are scratch of N
-// words each; `cnt` and `claim` are all-zero on entry and the kernel leaves
-// them all-zero, `gfs` may hold anything. `bias` may be null. One cooperative
-// launch on `stream`; returns its CUDA error (0 when it was accepted). Two
-// launches that share the scratch must be on one stream.
+// The per-addend limit of a call of B2 updates: B2 addends of at most this
+// magnitude sum to within 2^30 in the fixed point.
+static float fix_limit(int B2) { return 1073741824.0f / (float)B2; }
+
+// B3 in place: `claim` is an int32 scratch of N words and `acc` a 64-bit
+// scratch of B2 * (F + 3) words, both all-zero on entry; the kernel leaves
+// them all-zero. `bias` may be null. One cooperative launch on `stream`;
+// returns its CUDA error (0 when it was accepted). Two launches that share
+// the scratch must be on one stream.
 extern "C" int rfm_table_update_sorted(float* tab, float* bias, int N, int F,
                                        const int* idx, const float* upd,
-                                       int B2, float* cnt, int* claim,
-                                       float* gfs, float eta, float c,
-                                       void* stream) {
+                                       int B2, int* claim,
+                                       unsigned long long* acc, float eta,
+                                       float c, void* stream) {
   if (B2 <= 0 || N <= 0) return 0;
-  static int cache[2][kMaxDevices];
-  const bool v2 = F % 2 == 0 && aligned(tab, 8) && aligned(upd, 8);
-  const void* kernel =
-      v2 ? reinterpret_cast<const void*>(inplace_update<2>)
-         : reinterpret_cast<const void*>(inplace_update<1>);
-  void* args[] = {&tab, &bias, &N,   &F,     &idx, &upd,
-                  &B2,  &cnt,  &claim, &gfs, &eta, &c};
-  return launch(kernel, cache[v2], (long long)B2 * 32, args,
+  static int cache[kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(inplace_update);
+  float lim = fix_limit(B2);
+  void* args[] = {&tab, &bias, &N, &F, &idx, &upd, &B2, &claim, &acc, &eta,
+                  &c, &lim};
+  return launch(kernel, cache, (long long)B2 * 32, args,
                 static_cast<cudaStream_t>(stream));
 }
 
-// B2: `acc` is an f32 scratch of N * (F+2) floats, all-zero on entry; the
-// kernel leaves it all-zero. `bias` may be null. One cooperative launch on
-// `stream`; returns its CUDA error (0 when it was accepted). Two launches
+// B2: `acc` is a 64-bit scratch of N * (F + 3) words, all-zero on entry;
+// the kernel leaves it all-zero. `bias` may be null. One cooperative launch
+// on `stream`; returns its CUDA error (0 when it was accepted). Two launches
 // that share `acc` must be on one stream.
 extern "C" int rfm_table_update_dense(float* tab, float* bias, int N, int F,
                                       const int* idx, const float* upd,
-                                      int B2, float* acc, float eta, float c,
-                                      void* stream) {
+                                      int B2, unsigned long long* acc,
+                                      float eta, float c, void* stream) {
   if (B2 <= 0 || N <= 0) return 0;
-  static int cache[3][kMaxDevices];
-  const int D = F + 2;
-  const int vec = D % 4 == 0 && aligned(acc, 16) && aligned(upd, 16)   ? 4
-                  : D % 2 == 0 && aligned(acc, 8) && aligned(upd, 8) ? 2
-                                                                     : 1;
-  const void* kernel =
-      vec == 4   ? reinterpret_cast<const void*>(dense_update<4>)
-      : vec == 2 ? reinterpret_cast<const void*>(dense_update<2>)
-                 : reinterpret_cast<const void*>(dense_update<1>);
-  void* args[] = {&tab, &bias, &N, &F, &idx, &upd, &B2, &acc, &eta, &c};
+  static int cache[kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(dense_update);
+  float lim = fix_limit(B2);
+  void* args[] = {&tab, &bias, &N, &F, &idx, &upd, &B2, &acc, &eta, &c, &lim};
   const long long a = (long long)B2 * 32, b = (long long)N * 32;
-  return launch(kernel, cache[vec >> 1], a > b ? a : b, args,
+  return launch(kernel, cache, a > b ? a : b, args,
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -6,12 +6,11 @@ the same spec, field by field (``on_gpu`` here is ``on_tpu`` there: the
 backend can run the fused engine). The decision rules and their measured
 reasons are documented in the JAX package.
 
-The port runs the fused engine (with its chunk-tail or its candidate
-tail) and the XLA window and candidate engines, with or without side
-features, on one device or on a mesh (`rankfm_tpu_torch.parallel`:
-data-parallel or table-parallel placement). `plan_fit` raises
-`NotImplementedError`, naming the ROADMAP item, for the plans outside
-that: a wide-window tail, pre-shuffled layouts.
+The port runs every plan: the fused engine (with its chunk-tail, its
+candidate tail or its wide-window tail, sorting each epoch or cycling
+pre-shuffled layouts) and the XLA window and candidate engines, with or
+without side features, on one device or on a mesh
+(`rankfm_tpu_torch.parallel`: data-parallel or table-parallel placement).
 """
 
 from __future__ import annotations
@@ -223,7 +222,7 @@ def plan_fit(spec: FitSpec) -> FitPlan:
         chunk_tail = max(1, spec.epochs // 6)
         tail_chunk, tail_ub, tail_sub = 128, 256, 8
 
-    plan = FitPlan(
+    return FitPlan(
         max_samples=max_samples, n_dev=n_dev, nblk=nblk,
         fused=fused, table_mode=table_mode, table_bf16=table_bf16,
         batch_size=bs, chunk=chunk, sub=sub, user_block=ub,
@@ -234,17 +233,3 @@ def plan_fit(spec: FitSpec) -> FitPlan:
         chunk_tail=chunk_tail, tail_chunk=tail_chunk,
         tail_user_block=tail_ub, tail_sub=tail_sub,
     )
-    _require_slice(spec, plan)
-    return plan
-
-
-def _require_slice(spec, plan):
-    """Raise `NotImplementedError` for a plan this port cannot run yet."""
-    if plan.tail_windows:
-        raise NotImplementedError(
-            "the wide-window tail is not ported (ROADMAP queue 1, "
-            "deliberately not ported: tail_windows)")
-    if plan.shuffle_layouts > 1:
-        raise NotImplementedError(
-            "pre-shuffled layouts are not ported (ROADMAP queue 1, "
-            "deliberately not ported: shuffle_layouts)")

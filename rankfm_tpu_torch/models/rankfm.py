@@ -5,8 +5,9 @@ the same public methods (`fit`, `fit_partial`, `predict`, `recommend`,
 `similar_items`, `similar_users`). Weights are a dict of tensors on the
 model's device (keyword-only ``device``, default ``'cuda'``). Training runs
 the engines of the JAX package as its planner resolves them: the fused
-WARP/BPR engine (`rankfm_tpu_torch.ops.fused`, with its chunk-tail or its
-candidate tail) and the XLA window and candidate engines
+WARP/BPR engine (`rankfm_tpu_torch.ops.fused`, with its chunk-tail, its
+candidate tail or its wide-window tail, sorting every epoch or cycling
+pre-shuffled layouts) and the XLA window and candidate engines
 (`rankfm_tpu_torch.ops.training`), each with or without side features.
 Their kernels (the fused chunk step and the table update) run on a GPU; on
 the CPU their plain versions run.
@@ -326,6 +327,22 @@ class _FitRun:
             return layout
 
         main_layout = layout_for(plan.chunk, plan.user_block)
+        # R pre-shuffled layouts cycled over the epochs (`shuffle_layouts`):
+        # R sorts a fit instead of one an epoch, built when first used;
+        # layout r = (epoch stream position) % R, keyed by (seed, r), so a
+        # fit_partial continues the cycle
+        R = plan.shuffle_layouts
+        shuffled = {}
+        shuffle = fused_mod.make_shuffle_fn(U, num_items, ub=plan.user_block)
+
+        def rec_for(epoch):
+            r = (self.rng_off + epoch) % R
+            if r not in shuffled:
+                rec, group = main_layout[:2]
+                shuffled[r] = shuffle(rec, group, fused_mod.shuffle_bits(
+                    fused_mod.layout_generator(m.seed, r), rec.shape[0]))
+            return shuffled[r]
+
         if m.mesh is not None:
             # each batch's chunks dealt to the ranks (device-major)
             main_layout = main_layout[:2] + fused_mod.split_layout_for_mesh(
@@ -362,17 +379,19 @@ class _FitRun:
 
         self.pull = pull_back
 
-        def run_epochs(epochs, chunk, ub, layout):
+        def run_epochs(epochs, chunk, ub, layout, n_windows, pre_shuffled):
             live = [t for t in (tab_u, tab_i, tab_uf, tab_if) if t is not None]
             # one device, or this rank of the data-parallel mesh
             epoch_fn = make_fused_dp_epoch_fn(
                 m.mesh, U, num_items, F, plan.max_samples, plan.batch_size,
-                chunk, ub=ub, n_windows=plan.n_windows,
-                sync_every=m.dp_sync_every)
+                chunk, ub=ub, n_windows=n_windows,
+                sync_every=m.dp_sync_every, pre_shuffled=pre_shuffled)
             for epoch in epochs:
                 t0 = time.time()
+                lay = ((rec_for(epoch),) + layout[1:] if pre_shuffled
+                       else layout)
                 ll = epoch_fn(
-                    tab_u, tab_i, packed, layout, self.eta(epoch), m.alpha,
+                    tab_u, tab_i, packed, lay, self.eta(epoch), m.alpha,
                     m.seed, self.rng_off + epoch, x_uf=x_uf, x_if=x_if,
                     tab_uf=tab_uf, tab_if=tab_if, beta=m.beta)
                 self.log_epoch(epoch, _ll_guard(ll, live), time.time() - t0)
@@ -384,7 +403,7 @@ class _FitRun:
         tm["prep_s"] = round(time.time() - tm0, 2)  # everything pre-epoch-0
         n_ct = plan.chunk_tail
         run_epochs(range(plan.n_main - n_ct), plan.chunk, plan.user_block,
-                   main_layout)
+                   main_layout, plan.n_windows, R > 1)
         if n_ct:
             ub_t = plan.tail_user_block
             U_pad_t = fused_mod.user_pad(U, ub_t)
@@ -396,13 +415,19 @@ class _FitRun:
                 x_uf = fused_mod.pad_feature_cols(m._x_uf_dev, U_pad_t)
             run_epochs(range(plan.n_main - n_ct, plan.n_main),
                        plan.tail_chunk, ub_t,
-                       layout_for(plan.tail_chunk, ub_t))
+                       layout_for(plan.tail_chunk, ub_t), plan.n_windows,
+                       False)
+        tail = range(plan.n_main, plan.n_main + plan.n_tail)
+        if plan.n_tail and plan.tail_windows:
+            # wide-window tail: the closing epochs run the fused engine at
+            # more windows a chunk, on the main layout
+            run_epochs(tail, plan.chunk, plan.user_block, main_layout,
+                       plan.tail_windows, R > 1)
         pull_back()
-        if plan.n_tail:
+        if plan.n_tail and not plan.tail_windows:
             # mixed schedule: the closing epochs run the candidate step,
             # whose negatives are drawn from the whole catalog
-            self.run_xla(range(plan.n_main, plan.n_main + plan.n_tail),
-                         step_kind='candidate')
+            self.run_xla(tail, step_kind='candidate')
 
 
 class RankFM:

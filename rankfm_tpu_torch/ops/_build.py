@@ -49,10 +49,12 @@ _ARGTYPES = {
                             _P, _F, _P, _P, _P, _P],
         # n, cooperative, stream
         "rfm_phase_probe": [_I, _I, _P],
+        # D, NW, BLK, P, Q, need, limit
+        "rfm_fused_smem": [_I, _I, _I, _I, _I, _P, _P],
     },
     "table_update": {
-        # tab, bias, N, F, idx, upd, B2, cnt, claim, gfs, eta, c, stream
-        "rfm_table_update_sorted": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
+        # tab, bias, N, F, idx, upd, B2, claim, acc, eta, c, stream
+        "rfm_table_update_sorted": [_P, _P, _I, _I, _P, _P, _I, _P, _P,
                                     _F, _F, _P],
         # tab, bias, N, F, idx, upd, B2, acc, eta, c, stream
         "rfm_table_update_dense": [_P, _P, _I, _I, _P, _P, _I, _P, _F, _F,

@@ -42,6 +42,7 @@ revolving DMAs. Random draws come from a counter-based Philox stream
 
 from __future__ import annotations
 
+import ctypes
 import math
 from collections import Counter
 
@@ -61,8 +62,9 @@ FUSED_NBLK_CAP = 64
 
 # kernel launches of `fused_batch`, keyed by (chunk rows, user block rows,
 # user features, item features): one count per batch whose chunks went
-# through the CUDA kernel
+# through the CUDA kernel; the same launches keyed by windows per chunk
 LAUNCHES = Counter()
+LAUNCHES_BY_NW = Counter()
 
 
 def _round_up(x, m):
@@ -627,7 +629,7 @@ def _step_args(dreg, tab_u, tab_i, x_uf, x_if, tab_uf, tab_if):
 def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
                           eta, dreg, *, factors, max_samples, ub_rows,
                           num_items, chosen=None, keys=None, x_uf=None,
-                          x_if=None, tab_uf=None, tab_if=None):
+                          x_if=None, tab_uf=None, tab_if=None, ll_rows=None):
     """Plain PyTorch version of one batch of the fused kernel.
 
     ``rec [nT*C, 2]`` int32 records in visit order, ``packed [U, W]``
@@ -645,8 +647,9 @@ def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
     the feature tables are updated in place too.
 
     Optional diagnostics: ``chosen [nT*C]`` int32 receives each row's
-    lowest chosen window slot (-1: none), and the list ``keys`` each
-    chunk's ``[C, NW*BLK]`` selection keys.
+    lowest chosen window slot (-1: none), ``ll_rows [nT*C]`` f32 each row's
+    log-likelihood term, and the list ``keys`` each chunk's ``[C, NW*BLK]``
+    selection keys.
     """
     dreg, feats = _step_args(dreg, tab_u, tab_i, x_uf, x_if, tab_uf,
                              tab_if)
@@ -663,6 +666,8 @@ def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
             int(ublk_h[k]) * ub_rows, int(iblk_h[k]) * BLK, u01_k, r1_k,
             eta, dreg, factors, max_samples, BLK, ub_rows, num_items, feats)
         lls.append(ll)
+        if ll_rows is not None:
+            ll_rows[k * C:(k + 1) * C] = ll
         if chosen is not None:
             chosen[k * C:(k + 1) * C] = j
         if keys is not None:
@@ -673,7 +678,7 @@ def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
 def fused_batch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
                 *, factors, max_samples, ub_rows, num_items, chosen=None,
                 x_uf=None, x_if=None, tab_uf=None, tab_if=None,
-                phase_ns=None):
+                phase_ns=None, ll_rows=None):
     """One batch of the fused WARP/BPR step (see `fused_batch_reference`
     for the arguments). CUDA tensors go through the Hopper kernel; CPU
     tensors through the plain version. Updates the tables in place and
@@ -688,14 +693,14 @@ def fused_batch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
             tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
             factors=factors, max_samples=max_samples, ub_rows=ub_rows,
             num_items=num_items, chosen=chosen, x_uf=x_uf, x_if=x_if,
-            tab_uf=tab_uf, tab_if=tab_if)
+            tab_uf=tab_uf, tab_if=tab_if, ll_rows=ll_rows)
     if tab_u.device.type != "cuda":
         raise ValueError(f"fused_batch runs on cuda or cpu, not {tab_u.device}")
     dreg, feats = _step_args(dreg, tab_u, tab_i, x_uf, x_if, tab_uf,
                              tab_if)
     return _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta,
                    dreg, factors, max_samples, ub_rows, num_items, chosen,
-                   feats, phase_ns)
+                   feats, phase_ns, ll_rows)
 
 
 def scratch_sizes(nT, C, UB, BLK, NW, D, P=0, Q=0, has_uf=False,
@@ -703,24 +708,23 @@ def scratch_sizes(nT, C, UB, BLK, NW, D, P=0, Q=0, has_uf=False,
     """Element counts of the kernel's scratch tensors for one batch
     (`rfm_fused_batch` in ``csrc/fused_chunk.cu``):
 
-    * ``acc`` f32, zeroed: the per-chunk gradient accumulator of the user
-      block, the positive block and the ``NW`` window blocks;
+    * ``acc`` int64, zeroed: the per-chunk gradient accumulator, in fixed
+      point (scale 2^32), of the user block, the positive block and the
+      ``NW`` window blocks, then the feature gradients ``[P + Q, D]``;
     * ``pw`` f32, uninitialised: one chunk's pairwise utilities
       ``[C, NW*BLK]`` followed by its ``ut_ui [C]``;
     * ``cnt`` int32, zeroed: each row's non-member and violator counts;
     * ``facc`` f32, zeroed (0 without side features): the chunk's feature
       representations (``UB`` user rows with user features, ``(1+NW)*BLK``
-      item rows with item features), the feature gradients ``[P + Q, D]``
-      and touch counts ``[P + Q]``, and one count of rows with a negative
-      per chunk.
+      item rows with item features), the feature touch counts ``[P + Q]``
+      and one count of rows with a negative per chunk.
     """
     P, Q = (P if has_uf else 0), (Q if has_if else 0)
     n_rep = (UB if has_uf else 0) + ((1 + NW) * BLK if has_if else 0)
-    return {"acc": (UB + (1 + NW) * BLK) * D,
+    return {"acc": (UB + (1 + NW) * BLK + P + Q) * D,
             "pw": C * NW * BLK + C,
             "cnt": 2 * C,
-            "facc": ((n_rep + P + Q) * D + P + Q + nT
-                     if has_uf or has_if else 0)}
+            "facc": (n_rep * D + P + Q + nT if has_uf or has_if else 0)}
 
 
 def chunk_work(C, UB, BLK, NW, D, has_uf=False, has_if=False, P=0, Q=0,
@@ -783,7 +787,8 @@ def _check(name, t, dtype, device, ndim):
 
 
 def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
-            F, M, UB, num_items, chosen, feats, phase_ns=None):
+            F, M, UB, num_items, chosen, feats, phase_ns=None,
+            ll_rows=None):
     from rankfm_tpu_torch.ops import _build
 
     dev = tab_u.device
@@ -797,6 +802,7 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
                             ("ublk", ublk, torch.int32, 1),
                             ("iblk", iblk, torch.int32, 1),
                             ("chosen", chosen, torch.int32, 1),
+                            ("ll_rows", ll_rows, torch.float32, 1),
                             ("phase_ns", phase_ns, torch.int64, 1),
                             ("x_uf", x_uf, torch.float32, 2),
                             ("x_if", x_if, torch.float32, 2),
@@ -816,8 +822,9 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
             or packed.shape[1] != item_pad(num_items) // BITS_PER_LANE
             or tab_i.shape[0] != item_pad(num_items)
             or tab_u.shape[0] % UB or UB > UBLK or D > LANES
-            or NW > FUSED_NBLK_CAP
+            or NW > FUSED_NBLK_CAP or Q > 256
             or (chosen is not None and chosen.shape != (nT * C,))
+            or (ll_rows is not None and ll_rows.shape != (nT * C,))
             or (phase_ns is not None and phase_ns.shape != (4,))
             or (x_uf is not None and tab_uf.shape != (P, D))
             or (x_if is not None and tab_if.shape != (Q, D))):
@@ -831,12 +838,13 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
             + f"F={F} UB={UB} num_items={num_items}")
     n = scratch_sizes(nT, C, UB, BLK, NW, D, P, Q, x_uf is not None,
                       x_if is not None)
-    acc = torch.zeros(n["acc"], dtype=torch.float32, device=dev)
+    acc = torch.zeros(n["acc"], dtype=torch.int64, device=dev)
     pw = torch.empty(n["pw"], dtype=torch.float32, device=dev)
     cnt = torch.zeros(n["cnt"], dtype=torch.int32, device=dev)
     facc = (torch.zeros(n["facc"], dtype=torch.float32, device=dev)
             if feats else None)
-    ll_rows = torch.empty(nT * C, dtype=torch.float32, device=dev)
+    if ll_rows is None:
+        ll_rows = torch.empty(nT * C, dtype=torch.float32, device=dev)
     log_I = math.log(num_items) if num_items > 1 else 1.0
 
     def ptr(t):
@@ -856,10 +864,19 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
         ptr(x_uf), ptr(x_if), ptr(tab_uf), ptr(tab_if), P, Q, ptr(facc),
         dreg[1], pw.data_ptr(), cnt.data_ptr(), ptr(phase_ns),
         torch.cuda.current_stream(dev).cuda_stream)
+    if err == -1:
+        need, limit = ctypes.c_int(), ctypes.c_int()
+        lib.rfm_fused_smem(D, NW, BLK, P, Q, ctypes.byref(need),
+                           ctypes.byref(limit))
+        raise ValueError(
+            f"fused_batch: {NW} windows of {BLK} items need {need.value} "
+            f"bytes of shared memory per block, this card has "
+            f"{limit.value}: fewer windows (n_windows / tail_windows)")
     if err:
         raise RuntimeError(f"fused chunk kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(err)})")
     LAUNCHES[(C, UB, x_uf is not None, x_if is not None)] += 1
+    LAUNCHES_BY_NW[NW] += 1
     return ll_rows.sum()
 
 
@@ -884,13 +901,56 @@ def draw_window_blocks(gen, shape, num_items):
     return torch.searchsorted(real_cum, x, right=True).to(torch.int32)
 
 
-def shuffle_keys(group, rnd_bits, gen):
-    """One epoch's segmented-shuffle sort keys: the group id in the high
-    bits, the top ``rnd_bits`` of a 32-bit random draw in the low bits
+def shuffle_bits(gen, n):
+    """``n`` 32-bit random draws (int64 in ``[0, 2^32)``) from ``gen``: the
+    draws of one segmented shuffle."""
+    return torch.randint(0, 2**32, (n,), generator=gen, dtype=torch.int64)
+
+
+def shuffle_rnd_bits(num_users, num_items, ub=None):
+    """The low key bits a segmented shuffle gives its random draw: what the
+    group ids of the layout leave of 31."""
+    NBLK = item_pad(num_items) // block_size(num_items)
+    NG = num_user_blocks(num_users, ub) * NBLK
+    return 31 - int(NG + 1).bit_length()
+
+
+def group_keys(group, rnd_bits, rnd):
+    """Segmented-shuffle sort keys: the group id in the high bits, the top
+    ``rnd_bits`` of each 32-bit draw of ``rnd`` in the low bits
     (`rankfm_tpu/ops/fused.py:1310-1313`)."""
-    rnd = torch.randint(0, 2**32, group.shape, generator=gen,
-                        dtype=torch.int64)
-    return (group.to(torch.int64) << rnd_bits) | (rnd >> (32 - rnd_bits))
+    return (group.to(torch.int64) << rnd_bits) | (
+        rnd.to(torch.int64) >> (32 - rnd_bits))
+
+
+def shuffle_keys(group, rnd_bits, gen):
+    """One epoch's segmented-shuffle sort keys, drawn from ``gen``."""
+    return group_keys(group, rnd_bits, shuffle_bits(gen, group.shape[0]))
+
+
+def make_shuffle_fn(num_users, num_items, ub=None):
+    """``shuffle(rec, group, rnd) -> rec_s``: the segmented shuffle an
+    epoch sorts by, standalone (`rankfm_tpu.ops.fused.make_shuffle_fn`), so
+    that a fit can build ``shuffle_layouts`` pre-shuffled layouts once and
+    cycle them over its epochs. ``rnd`` holds the 32-bit draws
+    (`shuffle_bits`), one per record; ``rec_s`` is on ``rec``'s device. A
+    stable sort: records of equal keys keep their fit-time order."""
+    rnd_bits = shuffle_rnd_bits(num_users, num_items, ub)
+
+    def shuffle(rec, group, rnd):
+        keys = group_keys(group, rnd_bits, rnd).to(rec.device)
+        return rec[torch.sort(keys, stable=True).indices]
+
+    return shuffle
+
+
+def layout_generator(seed, r):
+    """The CPU generator of pre-shuffled layout ``r`` of a fit, keyed by
+    ``(seed, 2**31 - 7, r)``: the JAX package's
+    ``fold_in(fold_in(PRNGKey(seed), 2**31 - 7), r)``."""
+    state = np.random.SeedSequence(
+        [int(seed), 2**31 - 7, int(r)]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state) & (2**63 - 1))
 
 
 def rank_generator(gen, seed, epoch, rank):
@@ -934,14 +994,18 @@ def split_layout_for_mesh(cids, ublk, iblk, n_dev):
 def fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
                 num_users, num_items, factors, max_samples, batch_size,
                 chunk, ub, n_windows=None, x_uf=None, x_if=None,
-                tab_uf=None, tab_if=None, beta=0.0):
+                tab_uf=None, tab_if=None, beta=0.0, pre_shuffled=False):
     """One epoch of the fused engine (`_epoch_body`,
     `rankfm_tpu/ops/fused.py:1273-1342`): one segmented-shuffle sort, a
     rotation of the batch order, per-batch seeds and per-chunk window
     draws, then `fused_batch` for each batch in order.
 
     ``layout`` is `make_records_grouped`'s tuple with ``rec`` on the
-    tables' device and the rest as CPU tensors. Side features come as in
+    tables' device and the rest as CPU tensors. ``pre_shuffled``: ``rec``
+    is already shuffled (one of the fit's ``shuffle_layouts``,
+    `make_shuffle_fn`) and the epoch does not sort; it still draws the
+    shuffle's bits, so that every other draw is the sorting epoch's and
+    only the row order differs. Side features come as in
     `fused_batch_reference` (``x_uf`` padded to the user table's rows,
     ``x_if`` to the item table's), with ``beta`` their L2 rate. Updates the
     tables in place; returns the epoch log-likelihood (0-dim f32 on the
@@ -951,14 +1015,14 @@ def fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
         num_users=num_users, num_items=num_items, factors=factors,
         max_samples=max_samples, batch_size=batch_size, chunk=chunk, ub=ub,
         n_windows=n_windows, x_uf=x_uf, x_if=x_if, tab_uf=tab_uf,
-        tab_if=tab_if, beta=beta)
+        tab_if=tab_if, beta=beta, pre_shuffled=pre_shuffled)
 
 
 def dp_fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
                    mesh, num_users, num_items, factors, max_samples,
                    batch_size, chunk, ub, n_windows=None, sync_every=1,
                    x_uf=None, x_if=None, tab_uf=None, tab_if=None, beta=0.0,
-                   batch_fn=None):
+                   batch_fn=None, pre_shuffled=False):
     """One data-parallel epoch of the fused engine on this rank of
     ``mesh`` (`_dp_epoch_body`, `rankfm_tpu/ops/fused.py:1345-1446`).
 
@@ -973,6 +1037,7 @@ def dp_fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     ``tab_u``, ``tab_i`` and the feature tables against the group's start; the epoch
     log-likelihood is summed over the ranks at the end. ``mesh=None`` is
     one device (`fused_epoch`), and so is a one-rank mesh, bit for bit.
+    ``pre_shuffled`` as in `fused_epoch`.
 
     ``batch_fn`` replaces `fused_batch` (same signature); tests count
     visits with it."""
@@ -983,8 +1048,7 @@ def dp_fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     n_dev = 1 if mesh is None else mesh.size
     rank = 0 if mesh is None else mesh.rank
     NBLK = item_pad(num_items) // block_size(num_items)
-    NG = num_user_blocks(num_users, ub) * NBLK
-    rnd_bits = 31 - int(NG + 1).bit_length()
+    rnd_bits = shuffle_rnd_bits(num_users, num_items, ub)
     NW = default_n_windows(NBLK) if n_windows is None else n_windows
     nb = cids.shape[0] // n_dev
     cids, ublk, iblk = (a[rank * nb:(rank + 1) * nb] for a in (cids, ublk,
@@ -993,8 +1057,12 @@ def dp_fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     UB = user_block(num_users, ub)
     gen = epoch_generator(seed, epoch)
 
-    keys = shuffle_keys(group, rnd_bits, gen).to(dev)
-    rec_s = rec[torch.sort(keys, stable=True).indices]
+    if pre_shuffled:
+        shuffle_bits(gen, group.shape[0])      # the sort's draws, unused
+        rec_s = rec
+    else:
+        keys = shuffle_keys(group, rnd_bits, gen).to(dev)
+        rec_s = rec[torch.sort(keys, stable=True).indices]
     r = int(torch.randint(0, nb, (), generator=gen))
     cids_b, ublk_b, iblk_b = (torch.roll(a, r, 0) for a in (cids, ublk, iblk))
     rgen = rank_generator(gen, seed, epoch, rank)

@@ -24,11 +24,14 @@ CUDA tensor a wrapper launches its kernel or raises; neither takes the
 plain version, a library sort or ``index_add_``.
 
 Each kernel is one cooperative launch per call and allocates nothing: B3
-counts each row's touches, scales the touched rows by ``c^cnt`` and adds
-every update row into its table row in place (the update is linear in the
-row), so its work does not grow with the table and a row's updates are
-never walked one by one; B2 adds the update rows into an ``[N, F+2]``
-accumulator and rewrites the touched rows from it. The TPU's sorted kernel
+lets one update of each row claim it, adds every update row into its
+claimant's accumulator row (``[B2, F+3]``) and lets the claimant rewrite the
+table row, so its work does not grow with the table and a row's updates are
+never walked one by one; B2 adds the update rows into an ``[N, F+3]``
+accumulator and rewrites the touched rows from it. Both sum in 64-bit fixed
+point with integer atomics, so a call's result is a function of its inputs
+alone, bit for bit, from one run to the next; a gradient too large for the
+fixed point, or not finite, turns its row to NaN. The TPU's sorted kernel
 reads a fixed span of sorted updates per table tile and falls back to the
 dense kernel when a span overflows; nothing is sorted here, so that
 fallback has no counterpart. What the kernels keep between calls is
@@ -48,8 +51,10 @@ import numpy as np
 import torch
 
 TILE = 2048          # the JAX wrapper's table tile: only `_regime` reads it
-# B2's accumulator ``[N, F+2]`` f32 may hold this many bytes; a larger table
-# takes B3 whatever the JAX rule says. B2 passes over the whole accumulator,
+# B2's accumulator, counted as ``[N, F+2]`` f32 (the row limit that was
+# measured; the fixed-point accumulator is ``[N, F+3]`` of 8 bytes, a little
+# over twice that), may hold this many bytes; a larger table takes B3
+# whatever the JAX rule says. B2 passes over the whole accumulator,
 # B3's work does not grow with the table: with 512 updates at F 64 on an
 # NVIDIA H100 80GB HBM3 (700 W), B2 / B3 took 0.0141 / 0.0184 ms per call
 # at 17.3 MB, 0.0209 / 0.0139 at 34.6 MB, 0.0426 / 0.0135 at 69.2 MB and
@@ -179,18 +184,19 @@ def _check(tab, bias, idx, upd, name):
             f"(upd must be [len(idx), F+2])")
 
 
-def scratch_sizes(N, F, kind):
+def scratch_sizes(N, F, kind, B2=0):
     """Element counts (4-byte words) of the persistent scratch one kernel
-    keeps for an ``N``-row table, in the order it is laid out. 'sorted'
-    keeps, whatever ``F``, the touch counts ``cnt [N]`` (f32) and the row
-    claims ``claim [N]`` (int32), zeroed when allocated and left all-zero
-    by every call, and the rows' gradient factors ``gf [N]`` (f32, written
-    before they are read). 'dense' keeps the accumulator ``acc [N, F+2]``
-    (f32), zeroed when allocated and left all-zero by every call."""
+    keeps for an ``N``-row table of width ``F`` and ``B2`` updates, in the
+    order it is laid out. 'sorted' keeps the fixed-point accumulator rows
+    of the updates that claim a row, ``acc [B2, F+3]`` (64-bit words, two
+    4-byte words each: factors, bias, touch count, flag), and the row
+    claims ``claim [N]`` (int32); 'dense' keeps the accumulator ``acc
+    [N, F+3]`` (64-bit). Both are zeroed when allocated and left all-zero
+    by every call."""
     if kind == "sorted":
-        return {"cnt": N, "claim": N, "gf": N}
+        return {"acc": 2 * B2 * (F + 3), "claim": N}
     if kind == "dense":
-        return {"acc": N * (F + 2)}
+        return {"acc": 2 * N * (F + 3)}
     raise ValueError(f"scratch_sizes: kind {kind!r} is not 'sorted' or 'dense'")
 
 
@@ -200,18 +206,18 @@ _scratch = {}
 _SCRATCH_MAX = 16
 
 
-def scratch(device, stream, N, kind, F=0):
-    """The persistent scratch of kernel ``kind`` for ``N``-row tables
-    (``F`` matters to 'dense' only) on ``device`` and the CUDA stream with
-    the handle ``stream``: one zeroed tensor of ``sum(scratch_sizes(N, F,
-    kind).values())`` 4-byte words, allocated at the first call and reused
-    by every later one.
+def scratch(device, stream, N, kind, F=0, B2=0):
+    """The persistent scratch of kernel ``kind`` for ``N``-row tables of
+    width ``F`` updated ``B2`` rows at a time (``B2`` matters to 'sorted'
+    only) on ``device`` and the CUDA stream with the handle ``stream``: one
+    zeroed tensor of ``sum(scratch_sizes(N, F, kind, B2).values())`` 4-byte
+    words, allocated at the first call and reused by every later one.
 
-    The kernels restore it: each call finds its zeroed parts all-zero and
-    leaves them all-zero, so no call clears it. It is per stream: two
-    tables of equal shape share one scratch, which is safe because launches
-    on one stream run in order; launches on two streams get two."""
-    words = sum(scratch_sizes(N, F, kind).values())
+    The kernels restore it: each call finds it all-zero and leaves it
+    all-zero, so no call clears it. It is per stream: two tables of equal
+    shape share one scratch, which is safe because launches on one stream
+    run in order; launches on two streams get two."""
+    words = sum(scratch_sizes(N, F, kind, B2).values())
     key = (device.index, stream, kind, words)
     buf = _scratch.get(key)
     if buf is None:
@@ -250,14 +256,15 @@ def _launch(kind, tab, bias, idx, upd, eta, c):
     name = f"table_update_{kind}"
     _check(tab, bias, idx, upd, name)
     N, F = tab.shape
+    B2 = idx.shape[0]
     dev = tab.device
     stream = _current_stream(dev)
-    scr = scratch(dev, stream, N, kind, F).data_ptr()
-    # 'sorted': cnt, claim, gf; 'dense': acc
-    parts = (scr, scr + 4 * N, scr + 8 * N) if kind == "sorted" else (scr,)
+    scr = scratch(dev, stream, N, kind, F, B2).data_ptr()
+    # 'sorted': claim, then acc; 'dense': acc
+    parts = ((scr + 8 * B2 * (F + 3), scr) if kind == "sorted" else (scr,))
     err = _fn(kind)(
         tab.data_ptr(), None if bias is None else bias.data_ptr(), N, F,
-        idx.data_ptr(), upd.data_ptr(), idx.shape[0], *parts, float(eta),
+        idx.data_ptr(), upd.data_ptr(), B2, *parts, float(eta),
         float(c), stream)
     if err:
         from rankfm_tpu_torch.ops import _build
@@ -270,18 +277,19 @@ def _launch(kind, tab, bias, idx, upd, eta, c):
 
 def table_update_sorted(tab, bias, idx, upd, eta, c):
     """Kernel B3 on CUDA tensors (arguments as `apply_table_update`), for
-    tables of many more rows than updates: one cooperative launch that
-    counts each row's touches, scales the touched rows by ``c^cnt`` and
-    adds every update row in place, scaled, with atomics. Its work does not
-    grow with the table. No sort, no copy of ``upd``, no allocation
-    (`scratch`)."""
+    tables of many more rows than updates: one cooperative launch in which
+    one update of each touched row claims it, every update row is added
+    into the claimant's fixed-point accumulator row with atomics, and the
+    claimant rewrites the table row. Its work does not grow with the table.
+    No sort, no copy of ``upd``, no allocation after the first call at a
+    shape (`scratch`)."""
     return _launch("sorted", tab, bias, idx, upd, eta, c)
 
 
 def table_update_dense(tab, bias, idx, upd, eta, c):
     """Kernel B2 on CUDA tensors (arguments as `apply_table_update`), for
     small tables: one cooperative launch that adds the update rows into a
-    persistent ``[N, F+2]`` accumulator with atomics and then, one warp per
-    table row, rewrites the touched rows and clears their accumulator
-    (`scratch`). No allocation and no clearing per call."""
+    persistent fixed-point ``[N, F+3]`` accumulator with atomics and then,
+    one warp per table row, rewrites the touched rows and clears their
+    accumulator (`scratch`). No allocation and no clearing per call."""
     return _launch("dense", tab, bias, idx, upd, eta, c)

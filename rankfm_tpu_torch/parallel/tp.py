@@ -36,7 +36,8 @@ import torch
 
 from rankfm_tpu_torch.ops import fused as fused_mod
 from rankfm_tpu_torch.ops import training
-from rankfm_tpu_torch.ops.negatives import csr_member, draw_candidates
+from rankfm_tpu_torch.ops.negatives import (
+    bitmap_member, csr_member, draw_candidates)
 from rankfm_tpu_torch.ops.scatter import apply_table_update, decay_c
 from rankfm_tpu_torch.parallel.mesh import feature_shardings, weight_shardings
 
@@ -65,8 +66,8 @@ def shard_rows(mesh, a, rows_pad):
 def pad_and_place(mesh, w, x_uf, x_if):
     """``(w_tp, x_uf_tp, x_if_tp)``: this rank's row shards of the tables
     that `weight_shardings` splits over ``model`` and of the feature
-    matrices, the rest copied; pad rows are zeros (a zero row scores 0 and
-    no index points at it)."""
+    matrices (None stays None), the rest copied; pad rows are zeros (a zero
+    row scores 0 and no index points at it)."""
     m = mesh.shape["model"]
     U_pad = _pad_rows(w["v_u"].shape[0], m)
     I_pad = _pad_rows(w["v_i"].shape[0], m)
@@ -75,6 +76,8 @@ def pad_and_place(mesh, w, x_uf, x_if):
     specs = dict(weight_shardings(mesh), **feature_shardings(mesh))
 
     def place(k, v):
+        if v is None:
+            return None
         if specs[k][:1] == ("model",):
             return shard_rows(mesh, v, rows[k])
         return torch.as_tensor(v).to(mesh.device, copy=True)
@@ -231,16 +234,18 @@ def _item_side(mesh, w, x_if, idx, x_if_any):
 
 
 def make_tp_train_step(mesh, num_items, max_samples, x_uf_any, x_if_any,
-                       sample_rounds=8, max_row_len=None, post_reject=False):
+                       sample_rounds=8, max_row_len=None, post_reject=False,
+                       sampler="bsearch"):
     """The candidate step over row-sharded tables (`_make_tp_step`,
     `rankfm_tpu/parallel/tp.py:168-291`), as a `training.TrainStep`: the
     binary-search sampler over the replicated CSR history (``hist =
-    {'offsets', 'flat'}``), or post-hoc rejection of the selected
-    negative."""
+    {'offsets', 'flat'}``), or ``sampler='bitmap'`` over the replicated
+    membership bitmap (``hist['bitmap']``), or post-hoc rejection of the
+    selected negative."""
     M = max_samples
     log_I = math.log(num_items) if num_items > 1 else 1.0
     post_reject = post_reject and M > 1
-    n_draws = training.candidate_draw_count("bsearch", sample_rounds,
+    n_draws = training.candidate_draw_count(sampler, sample_rounds,
                                             post_reject)
 
     def draw(gen, B):
@@ -249,7 +254,7 @@ def make_tp_train_step(mesh, num_items, max_samples, x_uf_any, x_if_any,
     def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta, draws):
         B = u.shape[0]
         cands, cand_ok = training.candidates(hist, u, num_items, M, draws,
-                                             "bsearch", post_reject,
+                                             sampler, post_reject,
                                              max_row_len)
         v_u_b, x_uf_b = _user_side(mesh, w, x_uf, u, x_uf_any)
         user_rep_b = v_u_b + x_uf_b @ w["v_uf"]
@@ -268,6 +273,8 @@ def make_tp_train_step(mesh, num_items, max_samples, x_uf_any, x_if_any,
         picked = training.warp_select(pairwise, cands, cand_ok, M)
         if post_reject:
             def member_of_j(jj):
+                if sampler == "bitmap":
+                    return bitmap_member(hist["bitmap"], u, jj[:, None])[:, 0]
                 return csr_member(hist["flat"], hist["offsets"], u, jj,
                                   max_row_len)
             picked = training.reselect_members(pairwise, cands, cand_ok,
@@ -384,7 +391,7 @@ def make_tp_window_step(mesh, num_items, max_samples, x_uf_any, x_if_any):
 
 def tp_epoch_fn(mesh, num_items, max_samples, x_uf_any, x_if_any, batch_size,
                 sample_rounds=8, max_row_len=None, post_reject=False,
-                step_kind="candidate"):
+                step_kind="candidate", sampler="bsearch"):
     """One TP epoch on this rank (`make_tp_epoch_fn`,
     `rankfm_tpu/parallel/tp.py:489-573`), with `training.epoch_body`'s
     signature; ``w``, ``x_uf``, ``x_if`` are `pad_and_place`'s shards and
@@ -405,7 +412,7 @@ def tp_epoch_fn(mesh, num_items, max_samples, x_uf_any, x_if_any, batch_size,
     else:
         step = make_tp_train_step(mesh, num_items, max_samples, x_uf_any,
                                   x_if_any, sample_rounds, max_row_len,
-                                  post_reject)
+                                  post_reject, sampler)
     bd = batch_size // D
     cols = slice(mesh.data_rank * bd, (mesh.data_rank + 1) * bd)
 

@@ -8,16 +8,19 @@ run them there with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 This file imports no JAX, so it runs where only the port is installed.
 
 Fused kernel vs plain version on the same inputs and the same Philox
-draws: f32 atomics sum in a run-dependent order, so the tables agree to
-~1e-5 absolute (checked at 1e-4), the log-likelihood to 1e-4 relative, and
-at least 99.9% of the rows choose the same negative.
+draws: the kernel sums in 64-bit fixed point and in other orders than the
+plain version's f32 products, so the tables agree to ~1e-5 absolute
+(checked at 1e-4), the log-likelihood to 1e-4 relative, and at least 99.9%
+of the rows choose the same negative.
 
-Table-update kernels vs `table_update_reference` on the same inputs: both
-sum a row's updates with atomics, in a run-dependent order and another
-one than ``index_add_``, and the sorted kernel adds the scaled update rows
-into the scaled table row instead of scaling their sum, so the tables
-agree to ~1e-7 absolute even for a row that takes all 16,384 updates;
-checked at 1e-5. Rows that no update touches stay bit-equal.
+Table-update kernels vs `table_update_reference` on the same inputs: the
+kernels sum a row's updates in 64-bit fixed point, ``index_add_`` in f32
+in its own order, so the tables agree to ~1e-7 absolute even for a row
+that takes all 16,384 updates; checked at 1e-5. Rows that no update
+touches stay bit-equal.
+
+Every kernel sums in an order fixed by its inputs: the same call twice
+gives equal bytes, and so do two fits from the same seed.
 """
 
 import numpy as np
@@ -142,8 +145,8 @@ def test_kernel_matches_plain_version(cuda, M, nw, edge):
          "item-only-F50", "both-BLK128", "user-only-UB608"])
 def test_featured_kernel_matches_plain_version(cuda, n_uf, n_if, edge):
     """The featured kernel against its plain version: the row tables and
-    the feature tables to 1e-4 absolute (f32 atomics in a run-dependent
-    order), the ll to 1e-4 relative, 99.9% of the negatives equal."""
+    the feature tables to 1e-4 absolute (fixed-point sums in other orders),
+    the ll to 1e-4 relative, 99.9% of the negatives equal."""
     rng = np.random.default_rng(n_uf + n_if)
     (tabs, feats), args, kw, rows = _case(cuda, 4, rng, n_uf, n_if,
                                           **EDGES[edge])
@@ -170,6 +173,118 @@ def test_featured_kernel_matches_plain_version(cuda, n_uf, n_if, edge):
         if name in feats:
             assert float((fk[name] - fr[name]).abs().max()) <= 1e-4
             assert float((fk[name] - feats[name]).abs().max()) > 0
+
+
+def _ties_case(dev, rng, nw=4):
+    """A batch whose rows see many exactly tied keys: every item row has
+    the same factors, the positives (items of the first three blocks) a
+    bias of 2.5 and the window items (blocks 3 to 8) one of 1.0, so every
+    window slot is a non-violator at pw = 1.5 and every slot of the
+    Bernoulli subset ties at the key maximum (those off it tie at the 1e6
+    offset)."""
+    U, I, F, C, ub = 700, 9000, 20, 128, 256
+    hist = rng.random((U, I)) < 0.05
+    offsets = np.zeros(U + 1, np.int32)
+    offsets[1:] = np.cumsum(hist.sum(1))
+    packed = torch.from_numpy(fused.pack_history(
+        offsets, np.nonzero(hist)[1].astype(np.int32), U, I)).to(dev)
+    u, i = np.nonzero(hist[:, :3072])
+    pick = rng.choice(len(u), 6000, replace=False)
+    rec, _, cids, ublk, iblk = fused.make_records_grouped(
+        u[pick], i[pick], np.ones(6000, np.float32), U, I, 2048, C, ub=ub)
+    nT = cids.shape[1]
+    rec_b = torch.from_numpy(rec).to(dev).view(-1, C, 2)[
+        torch.from_numpy(cids[0]).to(dev).long()].reshape(-1, 2)
+    blk = rng.integers(3, 9, (nT, nw)).astype(np.int32)
+    w_i = np.where(np.arange(I) < 3072, 2.5, 1.0).astype(np.float32)
+    v_i = np.tile(rng.normal(0, 0.1, F).astype(np.float32), (I, 1))
+    tabs = fused.extend_tables(
+        torch.from_numpy(w_i).to(dev),
+        torch.from_numpy(rng.normal(0, 0.1, (U, F)).astype(np.float32)).to(dev),
+        torch.from_numpy(v_i).to(dev), fused.user_pad(U, ub),
+        fused.item_pad(I))
+    args = (rec_b, packed, torch.from_numpy(blk).to(dev),
+            torch.from_numpy(ublk[0]).to(dev),
+            torch.from_numpy(iblk[0]).to(dev), 5, 0.1, (0.002, 0.02))
+    kw = dict(factors=F, ub_rows=fused.user_block(U, ub), num_items=I)
+    return tabs, args, kw, nT * C
+
+
+# (name, max_samples, windows, user / item feature columns, _case shape);
+# "instacart-nw*": chunk 128 @ user block 1,024 over 9 blocks of 1,024
+# items at F 50, with 4 windows per chunk (the main epochs) and 8 (the
+# wide tail)
+REPEAT_CASES = (
+    ("base", 20, 4, 0, 0, {}),
+    ("bpr", 1, 1, 0, 0, {}),
+    ("featured", 20, 4, 21, 18, {}),
+    ("user-features", 20, 1, 30, 0, dict(F=50)),
+    ("instacart-nw4", 50, 4, 0, 0, dict(I=9000, F=50, ub=1024)),
+    ("instacart-nw8", 50, 8, 0, 0, dict(I=9000, F=50, ub=1024)),
+    ("ties", 50, 4, 0, 0, None),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,M,nw,n_uf,n_if,shape", REPEAT_CASES,
+                         ids=[c[0] for c in REPEAT_CASES])
+def test_kernel_repeats_bit_for_bit(cuda, name, M, nw, n_uf, n_if, shape):
+    """The same batch twice from the same tables: every table, every ll
+    term and every chosen slot equal to the byte (the kernel sums in an
+    order fixed by its inputs). The tied case does tie: many rows have
+    more than one slot at the key maximum."""
+    rng = np.random.default_rng(11)
+    if shape is None:
+        tabs, args, kw, rows = _ties_case(cuda, rng, nw)
+        feats = {}
+    else:
+        case, args, kw, rows = _case(cuda, nw, rng, n_uf, n_if, **shape)
+        tabs, feats = case if n_uf or n_if else (case, {})
+    outs = []
+    for _ in range(2):
+        tk = [t.clone() for t in tabs]
+        fk = {k: v.clone() for k, v in feats.items()}
+        ch = torch.empty(rows, dtype=torch.int32, device=cuda)
+        ll = torch.empty(rows, dtype=torch.float32, device=cuda)
+        fused.fused_batch(*tk, *args, max_samples=M, chosen=ch, ll_rows=ll,
+                          **kw, **fk)
+        outs.append(tk + [fk[k] for k in sorted(fk)] + [ch, ll])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert torch.isfinite(outs[0][-1]).all()
+    if shape is None:
+        keys = []
+        tr = [t.clone() for t in tabs]
+        fused.fused_batch_reference(*tr, *args, max_samples=M, keys=keys,
+                                    **kw)
+        n_max = torch.cat([(k == k.max(1, keepdim=True).values).sum(1)
+                           for k in keys])
+        assert int((n_max > 1).sum()) >= rows // 4
+        assert int(n_max.max()) >= 20
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_windows_beyond_shared_memory(cuda):
+    """A row's keys and its tied-slot list live in shared memory: 40
+    windows of 1,024 items need more than a block of an H100 has, and the
+    wrapper says so instead of launching (the tables are left as they
+    were); 36 windows still fit."""
+    rng = np.random.default_rng(8)
+    tabs, args, kw, _ = _case(cuda, 1, rng, U=64, I=41_000, ub=None)
+    before = [t.clone() for t in tabs]
+    for nw, fits in ((40, False), (36, True)):
+        blk = torch.from_numpy(rng.integers(
+            0, 41, (args[2].shape[0], nw)).astype(np.int32)).to(cuda)
+        call = lambda: fused.fused_batch(  # noqa: E731
+            *tabs, args[0], args[1], blk, *args[3:], max_samples=5, **kw)
+        if fits:
+            call()
+            torch.cuda.synchronize()
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                call()
+            for t, t0 in zip(tabs, before):
+                assert torch.equal(t, t0)
 
 
 @pytest.mark.cuda
@@ -258,6 +373,62 @@ def test_gpu_featured_fit_matches_cpu_fit(cuda):
     np.testing.assert_allclose(
         [r["log_likelihood"] for r in mg.training_log_],
         [r["log_likelihood"] for r in mc.training_log_], rtol=1e-4)
+
+
+# (name, RankFM keyword arguments, with side features): one fit per engine
+# and fit feature, run twice from one seed
+REPEAT_FITS = (
+    ("fused-chunk-tail", dict(epochs=3), False),
+    ("fused-features", dict(epochs=3), True),
+    ("mixed", dict(train_step="mixed", epochs=6), False),
+    ("mixed-features", dict(train_step="mixed", epochs=6), True),
+    ("window-step", dict(use_fused=False, train_step="window", epochs=2),
+     False),
+    ("candidate-step", dict(use_fused=False, train_step="candidate",
+                            epochs=2), False),
+    ("wide-tail", dict(train_step="mixed", tail_windows=3, epochs=6), False),
+    ("shuffle-layouts", dict(shuffle_layouts=4, epochs=5), False),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,features", REPEAT_FITS,
+                         ids=[f[0] for f in REPEAT_FITS])
+def test_same_seed_fits_on_the_card_are_equal(cuda, name, kw, features):
+    """Two fits from one seed on the card end with equal weights, to the
+    byte, on every engine (the kernels sum in an order fixed by their
+    inputs); the plan is the one named."""
+    import pandas as pd
+
+    from rankfm_tpu_torch import RankFM
+
+    rng = np.random.default_rng(6)
+    users = np.repeat(np.arange(600), 25)
+    train = np.stack([users, rng.integers(0, 2500, len(users))], 1)
+    fkw = {}
+    if features:
+        uids, iids = np.unique(train[:, 0]), np.unique(train[:, 1])
+        fkw = dict(
+            user_features=pd.DataFrame({"user_id": uids, **{
+                f"uf{k}": (uids % 4 == k).astype(np.float32)
+                for k in range(4)}}),
+            item_features=pd.DataFrame({"item_id": iids, **{
+                f"if{k}": (iids % 6 == k).astype(np.float32)
+                for k in range(6)}}))
+    kw = dict(kw)
+    epochs = kw.pop("epochs")
+    cfg = dict(factors=12, loss="warp", max_samples=10,
+               learning_schedule="invscaling", device="cuda", **kw)
+    models = [RankFM(**cfg).fit(train, epochs=epochs, **fkw)
+              for _ in range(2)]
+    plan = models[0].last_fit_plan_
+    assert plan.fused == (kw.get("use_fused") is not False)
+    if "tail_windows" in kw:
+        assert plan.tail_windows == 3 and plan.n_tail == 1
+    if "shuffle_layouts" in kw:
+        assert plan.shuffle_layouts == 4
+    for k, v in models[0]._weights.items():
+        assert np.array_equal(v, models[1]._weights[k]), k
 
 
 @pytest.mark.cuda
@@ -354,10 +525,10 @@ def test_table_update_kernels_match_plain_version(cuda, N, B2, F, kernel,
     assert out[0] is tk and out[1] is bk
     assert scatter.LAUNCHES[kernel] == before + 1
     _assert_update_matches(tk, bk, tab, bias, idx, upd, eta, c)
-    # the kernel left its scratch clean ('sorted': the counts and claims)
+    # the kernel left its scratch clean (the accumulator, 'sorted': and the
+    # claims)
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    words = N * (F + 2) if kernel == "dense" else 2 * N
-    assert not scatter.scratch(tab.device, stream, N, kernel, F)[:words].any()
+    assert not scatter.scratch(tab.device, stream, N, kernel, F, B2).any()
 
 
 @pytest.mark.cuda
@@ -384,9 +555,50 @@ def test_table_updates_in_a_row_share_clean_scratch(cuda, kernel, N, B2):
             assert float((t - w).abs().max()) <= 1e-5
             t.copy_(w)
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    words = N * 52 if kernel == "dense" else 2 * N
-    assert not scatter.scratch(tabs[0][0].device, stream, N, kernel,
-                               50)[:words].any()
+    assert not scatter.scratch(tabs[0][0].device, stream, N, kernel, 50,
+                               B2).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,N,B2,pattern", [
+    ("sorted", 33_362, 16_384, "uniform"), ("dense", 10_000, 8_192, "uniform"),
+    ("sorted", 33_362, 16_384, "one-row"), ("dense", 33_362, 16_384, "one-row"),
+    ("sorted", 3_706, 16_384, "popular"), ("dense", 3_706, 16_384, "popular")],
+    ids=["items-sorted", "users-dense", "hot-row-sorted", "hot-row-dense",
+         "popular-sorted", "popular-dense"])
+def test_table_update_repeats_bit_for_bit(cuda, kernel, N, B2, pattern):
+    """The same update twice on copies of one table: equal bytes, also when
+    every update lands on one row (integer sums do not depend on the order
+    of the atomics)."""
+    tab, bias, idx, upd = _table_case(cuda, N, B2, 50, pattern, True)
+    launch = getattr(scatter, f"table_update_{kernel}")
+    eta, c = 0.1, scatter.decay_c(0.1, 0.01)
+    got = [launch(tab.clone(), bias.clone(), idx, upd, eta, c)
+           for _ in range(2)]
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sorted", "dense"])
+def test_table_update_marks_rows_it_cannot_sum(cuda, kernel):
+    """A gradient that is not finite, or too large for the fixed point,
+    turns its row (and only its row) to NaN, as an f32 sum would have; the
+    scratch is left clean for the next call."""
+    tab, bias, idx, upd = _table_case(cuda, 3_000, 1_024, 20, "uniform", True)
+    live = idx.cpu().numpy() >= 0
+    p_inf, p_big = np.flatnonzero(live)[:2]
+    upd[p_inf, 3] = float("inf")
+    upd[p_big, 0] = 1e9
+    bad_rows = {int(idx[p_inf]), int(idx[p_big])}
+    launch = getattr(scatter, f"table_update_{kernel}")
+    eta, c = 0.1, scatter.decay_c(0.1, 0.01)
+    tk, bk = launch(tab.clone(), bias.clone(), idx, upd, eta, c)
+    nan_rows = set(torch.nonzero(torch.isnan(tk).any(1)).flatten().tolist())
+    assert nan_rows == bad_rows
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not scatter.scratch(tab.device, stream, 3_000, kernel, 20,
+                               1_024).any()
 
 
 @pytest.mark.cuda

@@ -77,14 +77,14 @@ def test_chunk_bound_is_operations_at_both_headlines():
     (dict(nT=256, **INSTACART),
      dict(acc=(1024 + 5 * 1024) * 52, pw=128 * 4096 + 128, cnt=256, facc=0)),
     (dict(nT=256, **INSTACART, P=21, Q=21, has_uf=True, has_if=True),
-     dict(acc=6144 * 52, pw=128 * 4096 + 128, cnt=256,
-          facc=(1024 + 5120 + 42) * 52 + 42 + 256)),
+     dict(acc=(6144 + 42) * 52, pw=128 * 4096 + 128, cnt=256,
+          facc=(1024 + 5120) * 52 + 42 + 256)),
     (dict(nT=128, **ML1M, P=30, Q=18, has_uf=True),
-     dict(acc=3072 * 22, pw=256 * 1024 + 256, cnt=512,
-          facc=(1024 + 30) * 22 + 30 + 128)),
+     dict(acc=(3072 + 30) * 22, pw=256 * 1024 + 256, cnt=512,
+          facc=1024 * 22 + 30 + 128)),
     (dict(nT=128, **ML1M, P=30, Q=18, has_if=True),
-     dict(acc=3072 * 22, pw=256 * 1024 + 256, cnt=512,
-          facc=(2048 + 18) * 22 + 18 + 128)),
+     dict(acc=(3072 + 18) * 22, pw=256 * 1024 + 256, cnt=512,
+          facc=2048 * 22 + 18 + 128)),
 ], ids=["ml1m", "instacart", "instacart-both", "ml1m-user-only",
         "ml1m-item-only"])
 def test_scratch_sizes(kw, want):

@@ -191,10 +191,22 @@ ML1M_FEATURES = dict(x_uf_any=True, num_uf=30, x_if_any=True, num_if=18)
     dict(INSTACART, epochs=6, **INSTACART_FEATURES),
     dict(INSTACART, epochs=10, x_if_any=True, num_if=21),
     dict(ML1M, **ML1M_FEATURES),
+    dict(INSTACART, epochs=6, tail_windows=8),
+    dict(INSTACART, num_items=32_655, tail_windows=64),
+    dict(ML1M, train_step="mixed", tail_windows=8),
+    dict(ML1M, num_items=9500, train_step="mixed", tail_windows=8),
+    dict(INSTACART, epochs=6, tail_windows=3),
+    dict(ML1M, shuffle_layouts=4),
+    dict(INSTACART, shuffle_layouts=4, tail_windows=8),
+    dict(ML1M, shuffle_layouts=4, use_fused=False),
 ], ids=["ml1m-headline", "3-block-window", "bpr", "instacart",
         "instacart-6-epochs", "not-fused", "no-backend", "candidate-tail",
         "features-not-fused", "ml1m-mixed", "instacart-features-6-epochs",
-        "instacart-item-features-10-epochs", "ml1m-features-chunk-tail"])
+        "instacart-item-features-10-epochs", "ml1m-features-chunk-tail",
+        "instacart-wide-tail", "instacart-wide-tail-clamped",
+        "ml1m-wide-tail", "9500-items-wide-tail", "instacart-tail-3-windows",
+        "ml1m-shuffle-layouts", "instacart-layouts-and-wide-tail",
+        "layouts-not-fused"])
 def test_plan_equals_jax_plan(spec):
     on_gpu = spec.get("on_gpu", True)
     spec = {k: v for k, v in spec.items() if k != "on_gpu"}
@@ -241,12 +253,21 @@ def test_featured_plans_are_fused():
             plan.tail_user_block) == (3, 1, 128, 256)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(num_items=9500, train_step="mixed", tail_windows=8), "tail_windows"),
-    (dict(shuffle_layouts=4), "shuffle_layouts"),
-], ids=["wide-tail", "shuffle-layouts"])
-def test_plans_outside_the_slice_raise(kw, item):
-    spec = dict(ML1M, on_gpu=True)
-    spec.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
-        tplanner.plan_fit(tplanner.FitSpec(**spec))
+def test_wide_tail_and_layouts_resolve_as_in_the_jax_package():
+    """The Instacart headline (32,655 products) plans in bf16 table mode,
+    where the window budget admits 9 windows a chunk: ``tail_windows=8``
+    resolves to 8 and larger requests to 9; ML-1M (4 blocks) caps the tail
+    at 4. Cycled layouts turn the chunk-tail schedule off."""
+    assert tfused.max_n_windows(10_000, 32_655, True) == 9
+    for want, tw in ((8, 8), (9, 64)):
+        plan = tplanner.plan_fit(tplanner.FitSpec(
+            on_gpu=True, **dict(INSTACART, num_items=32_655, epochs=6,
+                                tail_windows=tw)))
+        assert plan.table_bf16 and plan.tail_windows == want
+        assert (plan.n_main, plan.n_tail) == (5, 1)
+    plan = tplanner.plan_fit(tplanner.FitSpec(
+        on_gpu=True, **dict(ML1M, train_step="mixed", tail_windows=8)))
+    assert plan.nblk == 4 and plan.tail_windows == 4
+    plan = tplanner.plan_fit(tplanner.FitSpec(
+        on_gpu=True, **dict(ML1M, shuffle_layouts=4)))
+    assert plan.shuffle_layouts == 4 and plan.chunk_tail == 0

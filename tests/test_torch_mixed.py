@@ -24,7 +24,8 @@ from torch_common import (CFG, METRICS, assert_in_band,  # noqa: F401
 @pytest.mark.parametrize("kw,fused,n_tail,step_kind", [
     (dict(train_step="mixed"), True, 1, "window"),
     (dict(use_fused=False, train_step="candidate"), False, 0, "candidate"),
-], ids=["mixed", "candidate-step"])
+    (dict(train_step="mixed", tail_windows=3), True, 1, "window"),
+], ids=["mixed", "candidate-step", "mixed-wide-tail"])
 def test_fit_quality_matches_sequential_oracle(data_and_oracle, kw, fused,
                                                n_tail, step_kind):
     train, test, want = data_and_oracle
@@ -34,6 +35,7 @@ def test_fit_quality_matches_sequential_oracle(data_and_oracle, kw, fused,
     assert (plan.fused, plan.n_tail, plan.step_kind) == (fused, n_tail,
                                                          step_kind)
     assert plan.chunk_tail == 0 and plan.n_main + plan.n_tail == 10
+    assert plan.tail_windows == kw.get("tail_windows")
     assert sum(tfused.LAUNCHES.values()) == before    # plain versions only
     lls = [r["log_likelihood"] for r in tm.training_log_]
     assert len(lls) == 10 and np.isfinite(lls).all() and lls[-1] > lls[0]

@@ -308,15 +308,19 @@ def test_update_work_matches_hand_computed_figures(B2, F, n_live, n_rows,
 
 
 def test_scratch_sizes_say_what_the_kernels_keep():
-    assert tscatter.scratch_sizes(33_362, 50, "sorted") == {
-        "cnt": 33_362, "claim": 33_362, "gf": 33_362}
-    # the sorted kernel's scratch does not depend on the row width
-    assert tscatter.scratch_sizes(1_000_000, 64, "sorted") == \
-        tscatter.scratch_sizes(1_000_000, 7, "sorted")
-    assert sum(tscatter.scratch_sizes(1_000_000, 64, "sorted").values()) \
-        * 4 == 12_000_000                                   # 12 bytes a row
-    assert tscatter.scratch_sizes(10_000, 50, "dense") == {"acc": 520_000}
-    assert tscatter.scratch_sizes(3_706, 20, "dense") == {"acc": 3_706 * 22}
+    # 'sorted': a 64-bit accumulator row of F + 3 words per update, and one
+    # claim per table row
+    assert tscatter.scratch_sizes(33_362, 50, "sorted", 16_384) == {
+        "acc": 2 * 16_384 * 53, "claim": 33_362}
+    # its accumulator does not grow with the table
+    assert tscatter.scratch_sizes(1_000_000, 64, "sorted", 512)["acc"] == \
+        tscatter.scratch_sizes(33_362, 64, "sorted", 512)["acc"]
+    assert sum(tscatter.scratch_sizes(1_000_000, 64, "sorted", 512).values()) \
+        * 4 == 4_000_000 + 512 * 67 * 8            # 4 bytes a row + 8 * 67
+    assert tscatter.scratch_sizes(10_000, 50, "dense") == {
+        "acc": 2 * 10_000 * 53}
+    assert tscatter.scratch_sizes(3_706, 20, "dense") == {
+        "acc": 2 * 3_706 * 23}
     with pytest.raises(ValueError, match="sorted.*dense"):
         tscatter.scratch_sizes(8, 4, "span")
 

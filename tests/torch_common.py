@@ -983,5 +983,92 @@ def ring_tp_2x2(rank, world, feeds):
     return out
 
 
+def ring_fit_features(rank, world):
+    """The checks of tests/test_torch_fit_features.py on this rank: the
+    row-sharded step and epoch of `parallel.train` on a ``(1, world)``
+    mesh against the single-device step and `tp.tp_epoch_fn`, then the
+    wide-window tail of a fused fit on a ``(world, 1)`` data-parallel
+    mesh."""
+    from rankfm_tpu_torch import RankFM
+    from rankfm_tpu_torch.ops import fused, training
+    from rankfm_tpu_torch.parallel import make_mesh, tp
+    from rankfm_tpu_torch.parallel import train as ptrain
+
+    out = {}
+    mesh = make_mesh(data=1, model=world, device="cpu")
+    prob = xla_problem(21)
+    U, I, B = prob["U"], prob["I"], 256
+    w, x_uf, x_if = tp_inputs(prob, True)
+    hist = {"offsets": torch.from_numpy(prob["offsets"]),
+            "flat": torch.from_numpy(prob["flat"])}
+    u, i, sw = xla_columns(prob, B)
+    valid = torch.ones(B, dtype=torch.bool)
+    single = training.make_train_step(I, 4, True, True, 3, "bsearch")
+    draws = single.draw(torch.Generator().manual_seed(5), B)
+    w1, ll1 = single.apply({k: v.clone() for k, v in w.items()}, x_uf, x_if,
+                           hist, u[:B], i[:B], sw[:B], valid, 0.1, 0.01,
+                           0.1, draws)
+    step = ptrain.sharded_train_step(mesh, I, 4, True, True, 3)
+    _, xu_tp, xi_tp = tp.pad_and_place(mesh, w, x_uf, x_if)
+    w_tp, ll = step.apply(ptrain.place_weights(mesh, w), xu_tp, xi_tp, hist,
+                          u[:B], i[:B], sw[:B], valid, 0.1, 0.01, 0.1, draws)
+    out["step"] = dict(
+        cached=step is ptrain.sharded_train_step(mesh, I, 4, True, True, 3),
+        single={k: v.numpy().copy() for k, v in w1.items()},
+        sharded={k: v.numpy().copy()
+                 for k, v in tp.extract(mesh, w_tp, U, I).items()},
+        ll=float(ll), single_ll=float(ll1))
+
+    def epoch(fn):
+        wt, ll = fn(ptrain.place_weights(mesh, w), xu_tp, xi_tp, hist, u, i,
+                    sw, prob["n"], 0.1, 0.01, 0.1, 1492, 0)
+        return {k: v.numpy().copy() for k, v in wt.items()}, float(ll)
+
+    args = (mesh, I, 4, True, True, B, 3)
+    out["epoch"] = dict(
+        tp=epoch(tp.tp_epoch_fn(*args, step_kind="candidate")),
+        forced=epoch(ptrain.make_sharded_epoch_fn(
+            *args, step_kind="candidate", dp=False)),
+        by_bytes=epoch(ptrain.make_sharded_epoch_fn(
+            *args, step_kind="candidate",
+            table_bytes=ptrain.DP_TABLE_BYTES + 1)),
+        dp_is_dp=ptrain.make_sharded_epoch_fn(
+            *args, step_kind="candidate", dp=True).__qualname__.startswith(
+                "dp_epoch_body"))
+
+    # the wide tail on the data-parallel mesh: the window count of every
+    # fused epoch and of every batch in it, and the table updates
+    dmesh = make_mesh(data=world, model=1, device="cpu")
+    nw_by_epoch, batch_nws, n_updates = [], [], [0]
+    dp_epoch, batch, update = (fused.dp_fused_epoch, fused.fused_batch,
+                               training.apply_table_update)
+
+    def spy_epoch(*a, **kw):
+        nblk = fused.item_pad(kw["num_items"]) // fused.block_size(
+            kw["num_items"])
+        nw_by_epoch.append(kw["n_windows"] or fused.default_n_windows(nblk))
+        return dp_epoch(*a, **kw)
+
+    def spy_batch(*a, **kw):
+        batch_nws.append(a[4].shape[1])
+        return batch(*a, **kw)
+
+    def spy_update(*a, **kw):
+        n_updates[0] += 1
+        return update(*a, **kw)
+
+    rng = np.random.default_rng(9)
+    train = np.stack([np.repeat(np.arange(300), 20),
+                      rng.integers(0, 2500, 6000)], 1)       # 3 blocks
+    with patched(fused, dp_fused_epoch=spy_epoch, fused_batch=spy_batch), \
+            patched(training, apply_table_update=spy_update):
+        m = RankFM(factors=8, loss="warp", max_samples=5, train_step="mixed",
+                   tail_windows=3, mesh=dmesh).fit(train, epochs=6)
+    out["wide_tail"] = dict(plan=m.last_fit_plan_, nw_by_epoch=nw_by_epoch,
+                            batch_nws=sorted(set(batch_nws)),
+                            table_updates=n_updates[0], weights=m._weights)
+    return out
+
+
 if __name__ == "__main__":
     _rank_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
