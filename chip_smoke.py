@@ -774,25 +774,42 @@ def sweep_rows(torch, scatter, dev, rng, eta, c):
               flush=True)
 
 
+def launches_by_nw(fused):
+    """B1's launches by windows a chunk, the last field of its keys (a
+    tree whose keys end in the feature flags counts none)."""
+    out = {}
+    for k, n in fused.LAUNCHES.items():
+        if len(k) > 4:
+            out[k[4]] = out.get(k[4], 0) + n
+    return out
+
+
+def launches_by_layout(fused):
+    """B1's launches by (chunk rows, user block rows, user features, item
+    features), the first four fields of its keys."""
+    out = {}
+    for k, n in fused.LAUNCHES.items():
+        out[k[:4]] = out.get(k[:4], 0) + n
+    return out
+
+
 def launches_of(fused, scatter):
-    """Launch counts by kernel; B1's keys end in its two feature flags.
-    ``fused_chunk_wide``: B1's launches (with or without features) at
-    `WIDE_NW` windows a chunk or more."""
+    """Launch counts by kernel; B1's keys hold its two feature flags at 2
+    and 3. ``fused_chunk_wide``: B1's launches (with or without features)
+    at `WIDE_NW` windows a chunk or more."""
     return {"fused_chunk": sum(n for k, n in fused.LAUNCHES.items()
                                if not (k[2] or k[3])),
             "fused_chunk_features": sum(n for k, n in fused.LAUNCHES.items()
                                         if k[2] or k[3]),
             "table_update_sorted": scatter.LAUNCHES["sorted"],
             "table_update_dense": scatter.LAUNCHES["dense"],
-            "fused_chunk_wide": sum(
-                n for nw, n in getattr(fused, "LAUNCHES_BY_NW", {}).items()
-                if nw >= WIDE_NW)}
+            "fused_chunk_wide": sum(n for nw, n in launches_by_nw(fused).items()
+                                    if nw >= WIDE_NW)}
 
 
 def reset_launches(torch, fused, scatter):
     torch.cuda.synchronize()
     fused.LAUNCHES.clear()
-    getattr(fused, "LAUNCHES_BY_NW", {}).clear()
     scatter.LAUNCHES.clear()
 
 
@@ -812,7 +829,7 @@ def ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test):
     model = RankFM(**cfg).fit(train, epochs=6)
     torch.cuda.synchronize()
     fit_s = time.time() - t0
-    launches = dict(fused.LAUNCHES)
+    launches = launches_by_layout(fused)
     counts = launches_of(fused, scatter)
     plan = model.last_fit_plan_
     check(plan.fused and plan.chunk_tail == 1, f"plan {plan}")
@@ -1164,7 +1181,7 @@ def instacart_path(torch, RankFM, evaluation, fused, scatter, training, data,
     torch.cuda.synchronize()
     fit_s = time.time() - t0
     counts = launches_of(fused, scatter)
-    by_nw = dict(getattr(fused, "LAUNCHES_BY_NW", {}))
+    by_nw = launches_by_nw(fused)
     plan = model.last_fit_plan_
     check(plan.fused and plan.n_main == 5 and plan.n_tail == 1
           and plan.step_kind == "candidate"
@@ -1260,7 +1277,7 @@ def ml1m_features_path(torch, RankFM, fused, scatter, train, x_uf, x_if):
         train, epochs=3, **fkw)
     torch.cuda.synchronize()
     fit_s = time.time() - t0
-    launches = dict(fused.LAUNCHES)
+    launches = launches_by_layout(fused)
     counts = launches_of(fused, scatter)
     plan = model.last_fit_plan_
     check(plan.fused and plan.n_main == 3 and plan.chunk_tail == 1,

@@ -133,7 +133,6 @@ constexpr int kApplyRows = 4;    // rows whose counts a warp reads together
 constexpr float kMargin = 1.0f;
 constexpr float kFix = 4294967296.0f;               // 2^32, the fixed point
 constexpr float kUnfix = 2.3283064365386963e-10f;   // 2^-32
-constexpr int kErrSharedMemory = -1;  // the selection's row does not fit
 
 static_assert(kThreads == 16 * 16, "16 x 16 threads over a score tile");
 
@@ -492,8 +491,9 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
   float* s_xj = s_jr + D;     // [Q] sum of the chosen slots' x_if rows
   float* s_xi = s_xj + f.Q;   // [Q] the positive's x_if row
   float* s_xu = s_xi + f.Q;   // [P] the user's x_uf row
-  // [NW*BLK] the chosen slots, ascending (NW*BLK <= 64 * 1024)
-  uint16_t* s_list = reinterpret_cast<uint16_t*>(s_xu + f.P);
+  // [NW*BLK] the chosen slots, ascending (NW*BLK <= 64 * 1024); the rows
+  // above are laid out only with side features (`smem_bytes` counts alike)
+  uint16_t* s_list = reinterpret_cast<uint16_t*>(FEAT ? s_xu + f.P : s_j + D);
   __shared__ int s_wn[kWarps];  // chosen slots in each warp's segment
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* ll_rows = a.ll_rows + (size_t)c.k * C;
@@ -960,7 +960,7 @@ size_t smem_bytes(int D, int W2, int P, int Q, bool feat) {
       (size_t)((2 * kTM + kTN) * kKS + 2 * kTM) * sizeof(float);
   size_t select = (size_t)(W2 + 32 + 3 * kThreads + 3 * D) * sizeof(float) +
                   (size_t)W2 * sizeof(uint16_t);
-  if (feat) select += (size_t)(3 * D + 3 * Q + P) * sizeof(float);
+  if (feat) select += (size_t)(3 * D + 2 * Q + P) * sizeof(float);
   return score > select ? score : select;
 }
 
@@ -997,7 +997,7 @@ int run_batch(Args a, unsigned long long* acc, float* facc, cudaStream_t st) {
   err = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)optin) return kErrSharedMemory;
+  if (smem > (size_t)optin) return -(int)smem;  // the row does not fit
   const void* kernel =
       reinterpret_cast<const void*>(fused_batch_kernel<UF, IF>);
   err = cudaFuncSetAttribute(
@@ -1031,9 +1031,9 @@ int run_batch(Args a, unsigned long long* acc, float* facc, cudaStream_t st) {
 // nu = UB with user features, ni = (1 + NW) * BLK with item features;
 // `dreg_f` is eta * 2 * beta. The feature tables are updated in place.
 //
-// Returns the CUDA error of the launch, 0 when it was accepted, or -1 when
-// the selection's row needs more shared memory than a block of this card
-// has (`rfm_fused_smem` says how much). The library
+// Returns the CUDA error of the launch, 0 when it was accepted, or minus
+// the bytes of shared memory a block needs when the selection's row needs
+// more than a block of this card may have. The library
 // is compiled with -DRFM_UF=0|1 -DRFM_IF=0|1 and holds that one instantiation
 // of the kernel; it refuses the other three.
 extern "C" int rfm_fused_batch(float* tab_u, float* tab_i, int D, int F,
@@ -1089,20 +1089,6 @@ extern "C" int rfm_fused_batch(float* tab_u, float* tab_i, int D, int F,
   if ((x_uf != nullptr) != (RFM_UF != 0) || (x_if != nullptr) != (RFM_IF != 0))
     return (int)cudaErrorInvalidValue;
   return run_batch<RFM_UF != 0, RFM_IF != 0>(a, acc, facc, st);
-}
-
-// The shared memory one block of the batch kernel needs at these shapes
-// (`need`) and what a block of the current card may have (`limit`), bytes.
-extern "C" int rfm_fused_smem(int D, int NW, int BLK, int P, int Q,
-                              int* need, int* limit) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return (int)err;
-  *need = (int)smem_bytes(D, NW * BLK, P, Q, P > 0 || Q > 0);
-  return 0;
 }
 
 // What a phase boundary costs, for the choice between one persistent launch

@@ -49,8 +49,6 @@ _ARGTYPES = {
                             _P, _F, _P, _P, _P, _P],
         # n, cooperative, stream
         "rfm_phase_probe": [_I, _I, _P],
-        # D, NW, BLK, P, Q, need, limit
-        "rfm_fused_smem": [_I, _I, _I, _I, _I, _P, _P],
     },
     "table_update": {
         # tab, bias, N, F, idx, upd, B2, claim, acc, eta, c, stream

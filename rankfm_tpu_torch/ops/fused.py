@@ -42,7 +42,6 @@ revolving DMAs. Random draws come from a counter-based Philox stream
 
 from __future__ import annotations
 
-import ctypes
 import math
 from collections import Counter
 
@@ -61,10 +60,9 @@ UBLK = 1024          # default user-bucket cap; see pick_user_block
 FUSED_NBLK_CAP = 64
 
 # kernel launches of `fused_batch`, keyed by (chunk rows, user block rows,
-# user features, item features): one count per batch whose chunks went
-# through the CUDA kernel; the same launches keyed by windows per chunk
+# user features, item features, windows per chunk): one count per batch
+# whose chunks went through the CUDA kernel
 LAUNCHES = Counter()
-LAUNCHES_BY_NW = Counter()
 
 
 def _round_up(x, m):
@@ -864,19 +862,15 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
         ptr(x_uf), ptr(x_if), ptr(tab_uf), ptr(tab_if), P, Q, ptr(facc),
         dreg[1], pw.data_ptr(), cnt.data_ptr(), ptr(phase_ns),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err == -1:
-        need, limit = ctypes.c_int(), ctypes.c_int()
-        lib.rfm_fused_smem(D, NW, BLK, P, Q, ctypes.byref(need),
-                           ctypes.byref(limit))
+    if err < 0:
         raise ValueError(
-            f"fused_batch: {NW} windows of {BLK} items need {need.value} "
-            f"bytes of shared memory per block, this card has "
-            f"{limit.value}: fewer windows (n_windows / tail_windows)")
+            f"fused_batch: {NW} windows of {BLK} items need {-err} bytes of "
+            f"shared memory per block, more than this card gives a block: "
+            f"fewer windows (n_windows / tail_windows)")
     if err:
         raise RuntimeError(f"fused chunk kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(err)})")
-    LAUNCHES[(C, UB, x_uf is not None, x_if is not None)] += 1
-    LAUNCHES_BY_NW[NW] += 1
+    LAUNCHES[(C, UB, x_uf is not None, x_if is not None, NW)] += 1
     return ll_rows.sum()
 
 

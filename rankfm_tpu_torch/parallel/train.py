@@ -119,19 +119,13 @@ def make_sharded_train_step(mesh, num_items, max_samples, x_uf_any,
     return training.TrainStep(step.draw, apply)
 
 
-_steps = {}
-
-
 def sharded_train_step(mesh, num_items, max_samples, x_uf_any, x_if_any,
                        sample_rounds=8, sampler="bsearch"):
-    """`make_sharded_train_step`, built once per mesh and arguments."""
-    key = (id(mesh), num_items, max_samples, bool(x_uf_any), bool(x_if_any),
-           sample_rounds, sampler)
-    if key not in _steps:
-        _steps[key] = (mesh, make_sharded_train_step(
-            mesh, num_items, max_samples, x_uf_any, x_if_any, sample_rounds,
-            sampler))
-    return _steps[key][1]
+    """`make_sharded_train_step` under the JAX package's name. The JAX
+    accessor caches a traced program; nothing here is traced, so the
+    step is built anew."""
+    return make_sharded_train_step(mesh, num_items, max_samples, x_uf_any,
+                                   x_if_any, sample_rounds, sampler)
 
 
 def place_weights(mesh, w):

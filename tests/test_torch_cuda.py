@@ -23,6 +23,8 @@ Every kernel sums in an order fixed by its inputs: the same call twice
 gives equal bytes, and so do two fits from the same seed.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -156,7 +158,7 @@ def test_featured_kernel_matches_plain_version(cuda, n_uf, n_if, edge):
     fr = {k: v.clone() for k, v in feats.items()}
     ch_k = torch.empty(rows, dtype=torch.int32, device=cuda)
     ch_r = torch.empty_like(ch_k)
-    key = (128, kw["ub_rows"], n_uf > 0, n_if > 0)
+    key = (128, kw["ub_rows"], n_uf > 0, n_if > 0, 4)
     before = fused.LAUNCHES[key]
     ll_k = float(fused.fused_batch(*tk, *args, max_samples=20, chosen=ch_k,
                                    **kw, **fk))
@@ -175,15 +177,19 @@ def test_featured_kernel_matches_plain_version(cuda, n_uf, n_if, edge):
             assert float((fk[name] - feats[name]).abs().max()) > 0
 
 
-def _ties_case(dev, rng, nw=4):
+def _ties_case(dev, rng, nw=4, free_windows=False):
     """A batch whose rows see many exactly tied keys: every item row has
     the same factors, the positives (items of the first three blocks) a
     bias of 2.5 and the window items (blocks 3 to 8) one of 1.0, so every
     window slot is a non-violator at pw = 1.5 and every slot of the
     Bernoulli subset ties at the key maximum (those off it tie at the 1e6
-    offset)."""
+    offset). ``free_windows``: no history member past block 2, the
+    windows among the full blocks 3 to 7, and no item factors, so every
+    window slot is a non-member at exactly the same pw."""
     U, I, F, C, ub = 700, 9000, 20, 128, 256
     hist = rng.random((U, I)) < 0.05
+    if free_windows:
+        hist[:, 3072:] = False
     offsets = np.zeros(U + 1, np.int32)
     offsets[1:] = np.cumsum(hist.sum(1))
     packed = torch.from_numpy(fused.pack_history(
@@ -195,9 +201,11 @@ def _ties_case(dev, rng, nw=4):
     nT = cids.shape[1]
     rec_b = torch.from_numpy(rec).to(dev).view(-1, C, 2)[
         torch.from_numpy(cids[0]).to(dev).long()].reshape(-1, 2)
-    blk = rng.integers(3, 9, (nT, nw)).astype(np.int32)
+    blk = rng.integers(3, 8 if free_windows else 9, (nT, nw)).astype(np.int32)
     w_i = np.where(np.arange(I) < 3072, 2.5, 1.0).astype(np.float32)
     v_i = np.tile(rng.normal(0, 0.1, F).astype(np.float32), (I, 1))
+    if free_windows:
+        v_i[:] = 0.0
     tabs = fused.extend_tables(
         torch.from_numpy(w_i).to(dev),
         torch.from_numpy(rng.normal(0, 0.1, (U, F)).astype(np.float32)).to(dev),
@@ -261,6 +269,44 @@ def test_kernel_repeats_bit_for_bit(cuda, name, M, nw, n_uf, n_if, shape):
                            for k in keys])
         assert int((n_max > 1).sum()) >= rows // 4
         assert int(n_max.max()) >= 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [4, 8])
+def test_kernel_lists_every_window_slot_when_all_tie(cuda, nw):
+    """No window slot is a member and ``max_samples`` is the window's
+    width, so the Bernoulli subset holds every slot and, in the first
+    chunk (later chunks see the rows it moved), all ``nw * 1,024`` of
+    them tie at the key maximum: the tied-slot list fills the whole of
+    its shared-memory row. Two calls give equal bytes, and the kernel
+    agrees with its plain version."""
+    W2 = nw * 1024
+    rng = np.random.default_rng(12)
+    tabs, args, kw, rows = _ties_case(cuda, rng, nw, free_windows=True)
+    keys = []
+    tr = [t.clone() for t in tabs]
+    ch_r = torch.empty(rows, dtype=torch.int32, device=cuda)
+    ll_r = float(fused.fused_batch_reference(
+        *tr, *args, max_samples=W2, chosen=ch_r, keys=keys, **kw))
+    n_max = (keys[0] == keys[0].max(1, keepdim=True).values).sum(1)
+    valid = ((args[0][:, 0] >> 21) & 1).bool()
+    assert int(valid[:len(n_max)].sum()) >= 64
+    assert bool((n_max[valid[:len(n_max)]] == W2).all())
+    outs = []
+    for _ in range(2):
+        tk = [t.clone() for t in tabs]
+        ch = torch.empty(rows, dtype=torch.int32, device=cuda)
+        ll = torch.empty(rows, dtype=torch.float32, device=cuda)
+        fused.fused_batch(*tk, *args, max_samples=W2, chosen=ch, ll_rows=ll,
+                          **kw)
+        torch.cuda.synchronize()
+        outs.append(tk + [ch, ll])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert abs(float(outs[0][-1].sum()) - ll_r) <= 1e-4 * abs(ll_r)
+    assert (outs[0][-2] == ch_r)[valid].float().mean() >= 0.999
+    for a, b in zip(outs[0][:len(tabs)], tr):
+        assert float((a - b).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -360,9 +406,11 @@ def test_gpu_featured_fit_matches_cpu_fit(cuda):
         train, user_features=uf, item_features=itf, epochs=3)
     plan = mg.last_fit_plan_
     assert plan.fused and plan.chunk_tail == 1
-    assert fused.LAUNCHES[(plan.chunk, fused.user_block(500), True, True)] > 0
-    assert fused.LAUNCHES[(plan.tail_chunk, plan.tail_user_block, True,
-                           True)] > 0
+    by_layout = Counter()
+    for k, n in fused.LAUNCHES.items():
+        by_layout[k[:4]] += n
+    assert by_layout[(plan.chunk, fused.user_block(500), True, True)] > 0
+    assert by_layout[(plan.tail_chunk, plan.tail_user_block, True, True)] > 0
     assert not any(not (k[2] and k[3]) for k in fused.LAUNCHES)
     mc = RankFM(**cfg, device="cpu").fit(
         train, user_features=uf, item_features=itf, epochs=3)

@@ -1013,7 +1013,6 @@ def ring_fit_features(rank, world):
     w_tp, ll = step.apply(ptrain.place_weights(mesh, w), xu_tp, xi_tp, hist,
                           u[:B], i[:B], sw[:B], valid, 0.1, 0.01, 0.1, draws)
     out["step"] = dict(
-        cached=step is ptrain.sharded_train_step(mesh, I, 4, True, True, 3),
         single={k: v.numpy().copy() for k, v in w1.items()},
         sharded={k: v.numpy().copy()
                  for k, v in tp.extract(mesh, w_tp, U, I).items()},
