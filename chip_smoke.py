@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py [--parent DIR | --only-updates | --only-host-half
                            | --only-mesh | --only-quality | --only-repro
-                           | --profiler-windows N]
+                           | --only-graphs | --profiler-windows N]
 
 ``--only-updates`` stops after phase 4, ``--only-host-half`` runs phase 10
 alone, ``--only-mesh`` phase 11 after the single-device fit of phase 5,
 ``--only-quality`` phase 12 alone, ``--only-repro`` phase 13 alone,
+``--only-graphs`` phase 14 alone,
 ``--profiler-windows N`` counts the ``torch.profiler`` traces that
 come back without device time in N short windows with and without the
 idle margin the script leaves in each; none prints a result line.
@@ -27,8 +28,9 @@ result line):
    ``rankfm_tpu_torch/native`` (g++; the script fails if it does not build);
 3. what a phase boundary of B1 costs: grid barriers inside one
    cooperative launch against empty dependent launches; then the fused
-   chunk kernel (B1) against its plain PyTorch version on the
-   card, on the same inputs and the same Philox draws, with its roofline
+   chunk kernel (B1) against its plain PyTorch version (run on the CPU,
+   where its sums take one order run to run; timed on the card), on the
+   same inputs and the same Philox draws, with its roofline
    bound and the time of each of its phases: at the ML-1M shapes
    of both fit layouts (chunk 256 @ user block 1024, chunk 128 @ user
    block 256; F 20, M 20, 1 window) and at the Instacart shape (chunk 128
@@ -161,7 +163,18 @@ result line):
    equal. Then one fit of each engine under
    ``torch.use_deterministic_algorithms(True)`` with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, in a process of its own, which must
-   raise on no operation.
+   raise on no operation;
+14. the epoch as a CUDA graph: the epoch draws of (seed 1492, epoch 0..2,
+   rank 0..1) computed on the card, equal to the CPU's to the byte; then
+   one epoch of each single-device engine (ML-1M main and chunk-tail,
+   featured ML-1M, Instacart fused, the wide tail at 8 windows, ML-1M on a
+   pre-shuffled layout, the Instacart candidate epoch, the ML-1M window
+   step) eagerly and through its `ops.graph.EpochGraph` from copies of the
+   same tables, four epochs each: every table and ll equal to the byte;
+   prints both walls, both device busy shares, the graph's node count,
+   warm-up, capture and instantiate seconds and pool bytes. A replay
+   counts the launches its capture recorded; the fits of phases 5-9 must
+   each capture one graph per layout and replay one per epoch.
 
 Each path runs with the launch counts set to 0 just before it and reads
 them just after (on each rank, on the mesh); the kernels' JSON adds the
@@ -450,36 +463,39 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
         UB = fused.user_block(U, ub)
         nT = cids.shape[1]
         rec_d = torch.from_numpy(rec).to(dev).view(-1, chunk, 2)
-        gen = torch.Generator().manual_seed(SEED + chunk)
         batches = []
         for b in range(2):
             batches.append((
                 rec_d[torch.from_numpy(cids[b]).to(dev).long()].reshape(-1, 2),
-                fused.draw_window_blocks(gen, (nT, nw), I).to(dev),
+                window_draws(torch, fused, SEED + chunk, b, (nT, nw), I, dev),
                 torch.from_numpy(ublk[b]).to(dev),
                 torch.from_numpy(iblk[b]).to(dev), 1000 + b))
         tabs = fused.extend_tables(w_i.to(dev), v_u.to(dev), v_i.to(dev),
                                    fused.user_pad(U, ub), fused.item_pad(I))
         kw = dict(factors=F, max_samples=M, ub_rows=UB, num_items=I)
         tk = [t.clone() for t in tabs]
-        tr = [t.clone() for t in tabs]
         fk = {k: v.clone() for k, v in feats.items()}
-        fr = {k: v.clone() for k, v in feats.items()}
+        # the plain version on the CPU, where it sums in one order run to run
+        # (on the card its `index_add_`s take atomic order: two runs of it
+        # part by 1e-7, which one slot at the margin can carry to 1e-2 over
+        # a batch of 256 chunks)
+        tr = [t.cpu() for t in tabs]
+        fr = {k: v.cpu() for k, v in feats.items()}
+        packed_h = packed.cpu()
         n_rows = n_match = 0
-        plain = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         for rec_b, blk_b, ub_b, ib_b, seed in batches:
             ch_k = torch.empty(nT * chunk, dtype=torch.int32, device=dev)
-            ch_r = torch.empty_like(ch_k)
+            ch_r = torch.empty(nT * chunk, dtype=torch.int32)
             keys = []
+            tk0 = [t.clone() for t in tk]
+            fk0 = {k: v.clone() for k, v in fk.items()}
             ll_k = float(fused.fused_batch(*tk, rec_b, packed, blk_b, ub_b,
                                            ib_b, seed, eta, dreg, chosen=ch_k,
                                            **kw, **fk))
-            plain[0].record()
-            ll_r = fused.fused_batch_reference(
-                *tr, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg,
-                chosen=ch_r, keys=keys, **kw, **fr)
-            plain[1].record()
-            ll_r = float(ll_r)
+            ll_r = float(fused.fused_batch_reference(
+                *tr, rec_b.cpu(), packed_h, blk_b.cpu(), ub_b.cpu(),
+                ib_b.cpu(), seed, eta, dreg, chosen=ch_r, keys=keys, **kw,
+                **fr))
             check(np.isfinite(ll_k) and abs(ll_k - ll_r) <= LL_RTOL * abs(ll_r),
                   f"ll kernel {ll_k} vs plain {ll_r} ({tag} chunk {chunk})")
             ck, cr = ch_k.cpu().numpy(), ch_r.cpu().numpy()
@@ -495,7 +511,7 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
                       f"chose {cr[r]} (key {kr}) ({tag} chunk {chunk})")
         pairs_kr = list(zip(tk, tr)) + [(fk[k], fr[k]) for k in
                                         ("tab_uf", "tab_if") if k in feats]
-        err = max(float((a - b).abs().max()) for a, b in pairs_kr)
+        err = max(float((a.cpu() - b).abs().max()) for a, b in pairs_kr)
         out["max_abs_err"] = max(out["max_abs_err"], err)
         check(err <= TABLE_ATOL, f"tables differ by {err} ({tag} chunk {chunk})")
         check(n_match >= MATCH_MIN * n_rows,
@@ -520,7 +536,11 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
         ms = cuda_ms(torch, lambda: fused.fused_batch(
             *tk, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg, **kw,
             **fk), 5)
-        plain_ms = plain[0].elapsed_time(plain[1])   # the last batch compared
+        # the plain version's time: the last batch compared, on the card
+        rec_b, blk_b, ub_b, ib_b, seed = batches[-1]
+        plain_ms = cuda_ms(torch, lambda: fused.fused_batch_reference(
+            *tk0, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg, **kw,
+            **fk0), 1)
         # the bound of this batch, from its shapes and the features' density
         ops, nbytes = fused.chunk_work(
             chunk, UB, fused.block_size(I), nw, F + 2, x_uf is not None,
@@ -555,6 +575,19 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
               + f" us per chunk, barrier included; {sum(phase_us):.2f} us "
               f"per chunk ({CARD})", flush=True)
     return out
+
+
+def window_draws(torch, fused, seed, b, shape, num_items, dev):
+    """Batch ``b``'s window blocks: `fused.draw_window_blocks` under the
+    key of ``(seed, b)``; a tree from before the on-device draws (a
+    ``--parent`` tree) takes weighted numpy draws instead."""
+    if hasattr(fused, "epoch_key"):
+        return fused.draw_window_blocks(fused.epoch_key(seed, b), shape,
+                                        num_items).to(dev)
+    sizes = np.diff(np.r_[0, fused.window_block_cdf(num_items)])
+    rng = np.random.default_rng([seed, b])
+    blk = rng.choice(len(sizes), size=shape, p=sizes / num_items)
+    return torch.from_numpy(blk.astype(np.int32)).to(dev)
 
 
 def update_inputs(torch, dev, rng, N, F, B2, with_bias, pattern):
@@ -648,6 +681,9 @@ def update_phase(torch, scatter, dev, other_tree=False):
     row is no slower than the plain version are left out."""
     rng = np.random.default_rng(SEED)
     eta, c = 0.1, scatter.decay_c(0.1, 0.01)
+    if not other_tree:
+        # as an epoch hands them over: one buffer [eta, c] on the card
+        eta, c = torch.tensor([eta, c], dtype=torch.float32, device=dev)
     out = {"sorted": {"max_abs_err": 0.0}, "dense": {"max_abs_err": 0.0}}
     times = {}
     for name, N, F, B2, with_bias, pattern, kernels, main in UPDATE_CASES:
@@ -825,10 +861,12 @@ def ml1m_path(torch, RankFM, evaluation, fused, scatter, train, test):
     cfg = dict(factors=20, loss="warp", max_samples=20,
                learning_schedule="invscaling", device="cuda")
     reset_launches(torch, fused, scatter)
+    g0 = graph_counts()
     t0 = time.time()
     model = RankFM(**cfg).fit(train, epochs=6)
     torch.cuda.synchronize()
     fit_s = time.time() - t0
+    check_graph_runs(g0, 2, 6, "ML-1M fit")
     launches = launches_by_layout(fused)
     counts = launches_of(fused, scatter)
     plan = model.last_fit_plan_
@@ -899,26 +937,27 @@ def ml1m_layouts_path(torch, RankFM, fused, scatter, train, r1_epochs):
     layout), no sort inside an epoch; then two synced epochs on one
     pre-shuffled layout beside ``r1_epochs``, phase 5's sorting epochs."""
     calls = {"layouts": 0, "sorts": 0}
-    layout_generator, shuffle_keys = fused.layout_generator, fused.shuffle_keys
+    layout_key, shuffle_keys = fused.layout_key, fused.shuffle_keys
 
-    def spy_layout(seed, r):
+    def spy_layout(seed, r, device=None):
         calls["layouts"] += 1
-        return layout_generator(seed, r)
+        return layout_key(seed, r, device=device)
 
     def spy_keys(*a):
         calls["sorts"] += 1
         return shuffle_keys(*a)
 
     reset_launches(torch, fused, scatter)
-    fused.layout_generator, fused.shuffle_keys = spy_layout, spy_keys
+    g0 = graph_counts()
+    fused.layout_key, fused.shuffle_keys = spy_layout, spy_keys
     try:
         model, fit_s = timed(torch, lambda: RankFM(
             factors=20, loss="warp", max_samples=20,
             learning_schedule="invscaling", shuffle_layouts=4,
             device="cuda").fit(train, epochs=6))
     finally:
-        fused.layout_generator, fused.shuffle_keys = layout_generator, \
-            shuffle_keys
+        fused.layout_key, fused.shuffle_keys = layout_key, shuffle_keys
+    check_graph_runs(g0, 4, 6, "ML-1M R = 4 fit")
     counts = launches_of(fused, scatter)
     plan = model.last_fit_plan_
     check(plan.fused and plan.shuffle_layouts == 4 and plan.chunk_tail == 0
@@ -1044,7 +1083,7 @@ def time_engine_epochs(torch, model, fused, training, tag, candidate=True,
     if pre_shuffled:
         shuffle = fused.make_shuffle_fn(U, I, ub=plan.user_block)
         layout = (shuffle(layout[0], layout[1], fused.shuffle_bits(
-            fused.layout_generator(model.seed, 0), rec.shape[0])),) + \
+            fused.layout_key(model.seed, 0, device=dev), rec.shape[0])),) + \
             layout[1:]
     if n_windows is None:
         n_windows = plan.n_windows
@@ -1176,9 +1215,11 @@ def instacart_path(torch, RankFM, evaluation, fused, scatter, training, data,
     if tail_windows:
         cfg["tail_windows"] = tail_windows
     reset_launches(torch, fused, scatter)
+    g0 = graph_counts()
     t0 = time.time()
     model = RankFM(**cfg).fit(train, sample_weight=sw, epochs=6, **fkw)
     torch.cuda.synchronize()
+    check_graph_runs(g0, 2, 6, f"{tag} fit")
     fit_s = time.time() - t0
     counts = launches_of(fused, scatter)
     by_nw = launches_by_nw(fused)
@@ -1191,9 +1232,10 @@ def instacart_path(torch, RankFM, evaluation, fused, scatter, training, data,
     check(counts[b1] > 0 and counts[other] == 0,
           f"{tag}: {b1} did not launch alone: {counts}")
     if tail_windows:
-        # 5 main epochs at 4 windows, the tail epoch at tail_windows
-        nb = counts[b1] // 6
-        check(by_nw == {4: 5 * nb, tail_windows: nb},
+        # 5 main epochs at 4 windows, the tail epoch at tail_windows, each
+        # layout's graph after one warm-up epoch on copies of the tables
+        nb = counts[b1] // 8
+        check(by_nw == {4: 6 * nb, tail_windows: 2 * nb},
               f"{tag}: B1 launches by window count {by_nw}")
         check(counts["table_update_sorted"] == 0
               and counts["table_update_dense"] == 0,
@@ -1271,11 +1313,13 @@ def ml1m_features_path(torch, RankFM, fused, scatter, train, x_uf, x_if):
                item_features=feature_frame(x_if, np.unique(train[:, 1]),
                                            "item"))
     reset_launches(torch, fused, scatter)
+    g0 = graph_counts()
     t0 = time.time()
     model = RankFM(factors=20, loss="warp", max_samples=20, beta=0.1,
                    learning_schedule="invscaling", device="cuda").fit(
         train, epochs=3, **fkw)
     torch.cuda.synchronize()
+    check_graph_runs(g0, 2, 3, "featured ML-1M fit")
     fit_s = time.time() - t0
     launches = launches_by_layout(fused)
     counts = launches_of(fused, scatter)
@@ -1308,11 +1352,13 @@ def window_path(torch, RankFM, fused, scatter, training, train):
     """The window step on the ML-1M log: both tables through B2. Returns
     the launch counts and two more epochs' synced times."""
     reset_launches(torch, fused, scatter)
+    g0 = graph_counts()
     t0 = time.time()
     model = RankFM(factors=20, loss="warp", max_samples=20,
                    learning_schedule="invscaling", use_fused=False,
                    device="cuda").fit(train, epochs=2)
     torch.cuda.synchronize()
+    check_graph_runs(g0, 1, 2, "window-step fit")
     fit_s = time.time() - t0
     counts = launches_of(fused, scatter)
     plan = model.last_fit_plan_
@@ -2180,6 +2226,322 @@ def deterministic_fits(torch, RankFM, train, ic_data):
               f"deterministic implementation", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 14. each single-device epoch as one CUDA graph
+# ---------------------------------------------------------------------------
+
+def same_bytes(torch, a, b):
+    """Equal to the byte (NaN included), shape and type."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def graph_counts():
+    """Graphs captured and replayed so far (`ops.graph.RUNS`); None for a
+    tree from before the epoch graphs (a ``--parent`` tree)."""
+    try:
+        from rankfm_tpu_torch.ops import graph as graph_mod
+    except ImportError:
+        return None
+    return dict(graph_mod.RUNS)
+
+
+def check_graph_runs(before, captures, replays, tag):
+    """The fit replayed one graph per epoch and captured one per layout."""
+    if before is None:
+        return
+    from rankfm_tpu_torch.ops import graph as graph_mod
+    now = graph_mod.RUNS
+    got = (now["capture"] - before.get("capture", 0),
+           now["replay"] - before.get("replay", 0))
+    check(got == (captures, replays),
+          f"{tag}: {got[0]} graphs captured and {got[1]} replayed, "
+          f"want {captures} and {replays}")
+
+
+def fused_engine(torch, fused, model, chunk, ub, n_windows=None,
+                 pre_shuffled=False):
+    """``(fn, tables, batches)``: one fused epoch of the fitted model at
+    layout ``chunk`` @ ``ub`` (the fit's own layout: `deal_by_fraction`)
+    as `ops.graph` takes it, and its tables, from the model's weights."""
+    plan = model.last_fit_plan_
+    U, I, F = len(model.user_idx), len(model.item_idx), model.factors
+    dev = model.device
+    layout = fused.deal_by_fraction(fused.make_records_grouped(
+        model.interactions[:, 0], model.interactions[:, 1],
+        model.sample_weight, U, I, plan.batch_size, chunk, ub=ub),
+        chunk, U, I, ub=ub)
+    layout = tuple(torch.from_numpy(a).to(dev) for a in layout)
+    if pre_shuffled:
+        shuffle = fused.make_shuffle_fn(U, I, ub=ub)
+        layout = (shuffle(layout[0], layout[1], fused.shuffle_bits(
+            fused.layout_key(model.seed, 0, device=dev),
+            layout[0].shape[0])),) + layout[1:]
+    w = model._w
+    U_pad = fused.user_pad(U, ub)
+    tab_u, tab_i = fused.extend_tables(w["w_i"], w["v_u"], w["v_i"], U_pad,
+                                       fused.item_pad(I))
+    tables = dict(tab_u=tab_u, tab_i=tab_i, tab_uf=None, tab_if=None)
+    x_uf = x_if = None
+    if model.x_uf.any() or model.x_if.any():
+        tuf, tif = fused.extend_feature_tables(w["v_uf"], w["w_if"],
+                                               w["v_if"])
+        if model.x_uf.any():
+            x_uf = fused.pad_feature_cols(model._x_uf_dev, U_pad)
+            tables["tab_uf"] = tuf
+        if model.x_if.any():
+            x_if = fused.pad_feature_cols(model._x_if_dev, fused.item_pad(I))
+            tables["tab_if"] = tif
+    packed = model._ensure_packed_hist()
+
+    def fn(t, epoch, eta):
+        return fused.fused_epoch(
+            t["tab_u"], t["tab_i"], packed, layout, eta, model.alpha,
+            model.seed, epoch, num_users=U, num_items=I, factors=F,
+            max_samples=plan.max_samples, batch_size=plan.batch_size,
+            chunk=chunk, ub=ub, n_windows=n_windows, x_uf=x_uf, x_if=x_if,
+            tab_uf=t["tab_uf"], tab_if=t["tab_if"], beta=model.beta,
+            pre_shuffled=pre_shuffled)
+
+    return fn, tables, layout[2].shape[0]
+
+
+def xla_engine(torch, training, model, kind):
+    """``(fn, tables, batches)``: one epoch of the candidate or the window
+    step (``kind``) on copies of the fitted model's weights, as
+    `RankFM`'s XLA epochs run it (new feature tables copied back)."""
+    plan = model.last_fit_plan_
+    I, dev = len(model.item_idx), model.device
+    has_uf, has_if = bool(model.x_uf.any()), bool(model.x_if.any())
+    n = len(model.interactions)
+    nb = -(-n // plan.xla_batch)
+    n_pad = nb * plan.xla_batch
+    cols = [torch.zeros(n_pad, dtype=dt, device=dev)
+            for dt in (torch.int64, torch.int64, torch.float32)]
+    cols[0][:n] = torch.from_numpy(model.interactions[:, 0].astype(np.int64))
+    cols[1][:n] = torch.from_numpy(model.interactions[:, 1].astype(np.int64))
+    cols[2][:n] = torch.from_numpy(model.sample_weight)
+    if kind == "candidate":
+        step = training.make_train_step(
+            I, plan.max_samples, has_uf, has_if, sample_rounds=plan.rounds,
+            sampler=model._sampler, post_reject=plan.post_reject,
+            max_row_len=int(np.diff(model._ui_offsets).max()))
+        hist = {"offsets": model._offsets_dev, "flat": model._flat_items_dev,
+                "bitmap": model._ensure_bitmap()}
+    else:
+        step = training.make_window_train_step(I, plan.max_samples, has_uf,
+                                               has_if)
+        hist = model._ensure_packed_hist()
+    body = training.epoch_body(step, plan.xla_batch)
+    tables = {k: v.clone() for k, v in model._w.items()}
+
+    def fn(t, epoch, eta):
+        t_new, ll = body(t, model._x_uf_dev, model._x_if_dev, hist, *cols, n,
+                         eta, model.alpha, model.beta, model.seed, epoch)
+        for k, v in t_new.items():
+            if v is not t[k]:
+                t[k].copy_(v)
+        return ll
+
+    return fn, tables, nb
+
+
+def graph_vs_eager(torch, fused, scatter, tag, fn, tables, batches):
+    """One engine's epoch eagerly and through its CUDA graph from copies of
+    the same tables, epoch after epoch: every table and ll equal to the
+    byte; wall times of both, device busy shares, the graph's node count,
+    capture and instantiate seconds and pool bytes."""
+    dev = torch.device("cuda")
+    eta = 0.05
+    te = {k: None if v is None else v.clone() for k, v in tables.items()}
+    tg = {k: None if v is None else v.clone() for k, v in tables.items()}
+
+    def agree(ll_e, ll_g, epoch):
+        for k in te:
+            if te[k] is not None:
+                check(same_bytes(torch, te[k], tg[k]),
+                      f"{tag}: graph and eager epoch {epoch} differ in {k}")
+        check(same_bytes(torch, ll_e, ll_g),
+              f"{tag}: graph ll {float(ll_g)} vs eager {float(ll_e)} at "
+              f"epoch {epoch}")
+
+    from rankfm_tpu_torch.ops import graph as graph_mod
+
+    e0 = 200
+    runner = graph_mod.EpochGraph(fn, tg, dev, tag)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    peak0 = torch.cuda.max_memory_allocated()
+    before = [dict(c) for c in (fused.LAUNCHES, scatter.LAUNCHES)]
+    runner.capture(e0, eta)
+    ll_g = runner(e0, eta)
+    torch.cuda.synchronize()
+    peak1 = torch.cuda.max_memory_allocated()
+    per = runner.launches
+    ll_e = fn(te, e0, eta)
+    agree(ll_e, ll_g, e0)
+    n_fused = sum(per[0].values())
+    check(n_fused == 0 or n_fused == batches,
+          f"{tag}: one replay launches B1 {n_fused} times for {batches} "
+          f"batches")
+    walls = {"eager": [], "graph": []}
+    for rep in (1, 2):
+        for kind, run, t in (("eager", fn, te), ("graph", None, tg)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = (runner(e0 + rep, eta) if run is None
+                   else run(t, e0 + rep, eta))
+            torch.cuda.synchronize()
+            walls[kind].append(time.time() - t0)
+            if kind == "eager":
+                ll_e = out
+            else:
+                ll_g = out
+        agree(ll_e, ll_g, e0 + rep)
+    busy = {}
+    for kind in ("eager", "graph"):
+        box = {}
+
+        def go(kind=kind, box=box):
+            box["ll"] = (fn(te, e0 + 3, eta) if kind == "eager"
+                         else runner(e0 + 3, eta))
+
+        wall, dev_s, _ = profile_call(torch, go)
+        busy[kind] = (wall, dev_s)
+        if kind == "eager":
+            ll_e = box["ll"]
+        else:
+            ll_g = box["ll"]
+    agree(ll_e, ll_g, e0 + 3)
+    after = [dict(c) for c in (fused.LAUNCHES, scatter.LAUNCHES)]
+    for name, b, a, p in zip(("B1", "B2/B3"), before, after, per):
+        for k, n in p.items():
+            # the capture's warm-up, then 4 replays and 4 eager epochs
+            check(a.get(k, 0) - b.get(k, 0) == 9 * n,
+                  f"{tag}: {name} {k} counted {a.get(k, 0) - b.get(k, 0)} "
+                  f"launches for 4 replays of {n}, 4 eager epochs and a "
+                  f"warm-up")
+    st = runner.stats
+
+    def share(w):
+        return "not traced" if w[1] is None else \
+            f"{1e3 * w[1]:.1f} of {1e3 * w[0]:.1f} ms ({100 * w[1] / w[0]:.0f}%)"
+
+    rec = {"eager_s": walls["eager"], "graph_s": walls["graph"],
+           "eager_busy": busy["eager"], "graph_busy": busy["graph"],
+           "nodes": st["nodes"], "warmup_s": st["warmup_s"],
+           "capture_s": st["capture_s"], "instantiate_s": st["instantiate_s"],
+           "pool_bytes": st["pool_bytes"], "peak_bytes": peak1 - peak0,
+           "launches": st["launches"]}
+    print(f"graph vs eager, {tag}: equal to the byte over 4 epochs; wall "
+          f"eager {', '.join(f'{x:.4f}' for x in walls['eager'])} s, graph "
+          f"{', '.join(f'{x:.4f}' for x in walls['graph'])} s; device busy "
+          f"eager {share(busy['eager'])}, graph {share(busy['graph'])}; "
+          f"{st['nodes']} nodes, warm-up {st['warmup_s']:.3f} s, capture "
+          f"{st['capture_s']:.3f} s, instantiate {st['instantiate_s']:.3f} "
+          f"s, pool {st['pool_bytes'] / 2**20:.1f} MiB reserved, peak "
+          f"allocated +{(peak1 - peak0) / 2**20:.1f} MiB; launches per "
+          f"replay {st['launches']} ({CARD})", flush=True)
+    return rec
+
+
+def draws_card_vs_cpu(torch, fused, training):
+    """The epoch draws of (seed 1492, epoch 0..2, rank 0..1) on the card
+    against the CPU's, at the main paths' shapes: keys, the segmented
+    shuffle's bits, the rotation, the batch seeds, the window blocks, the
+    XLA permutation and batch keys, the candidate and window-step draws,
+    and the pre-shuffled layouts' keys."""
+    n_ml, n_ic = 606_208, 344_064          # padded rows (ML-1M, Instacart)
+
+    def draws(dev, epoch, rank):
+        key = fused.epoch_key(SEED, epoch, rank, device=dev)
+        perm, keys = training.epoch_draws(SEED, epoch, n_ic, 42, dev, rank)
+        out = {"key": key,
+               "shuffle": fused.shuffle_bits(key, n_ml),
+               "rotation": fused.rotation(key, 19),
+               "seeds": fused.batch_seeds(key, 19),
+               "blocks": fused.draw_window_blocks(key, (11, 256, 4),
+                                                  IC_ITEMS),
+               "perm": perm, "batch_keys": keys,
+               "candidates": training.make_train_step(
+                   IC_ITEMS, 50, False, False).draw(keys[5], 8192),
+               "layout": fused.layout_key(SEED, epoch + 2 * rank,
+                                          device=dev)}
+        for name, d in zip(("window_blocks", "u01", "r1"),
+                           training.make_window_train_step(
+                               N_ITEMS, 20, False, False).draw(keys[7],
+                                                               8192)):
+            out[name] = d
+        return out
+
+    t0 = time.time()
+    n = 0
+    for epoch in range(3):
+        for rank in range(2):
+            got = draws(torch.device("cuda"), epoch, rank)
+            want = draws(torch.device("cpu"), epoch, rank)
+            for k in want:
+                check(same_bytes(torch, got[k].cpu(), want[k]),
+                      f"draws of (seed {SEED}, epoch {epoch}, rank {rank}): "
+                      f"{k} differs between the card and the CPU")
+                n += got[k].numel()
+    print(f"draws: {n} values of (seed {SEED}, epoch 0..2, rank 0..1) "
+          f"equal on the card and the CPU ({time.time() - t0:.1f} s)",
+          flush=True)
+
+
+def graph_phase(torch, RankFM, fused, scatter, training, train, ic_data):
+    """Phase 14: the draws on the card against the CPU's, then one epoch
+    of each single-device engine eagerly and through its CUDA graph from
+    copies of the same tables (ML-1M main and chunk-tail, featured ML-1M,
+    Instacart fused, the wide tail at 8 windows, ML-1M on a pre-shuffled
+    layout, the Instacart candidate epoch, the ML-1M window step), on
+    models fitted for one epoch. Returns the launch counts (replays count
+    their launches) and the records by engine."""
+    draws_card_vs_cpu(torch, fused, training)
+    ic_train, _, sw = ic_data[:3]
+    ml_uf, ml_if = ml1m_features(np.random.default_rng(SEED + 2))
+    ml_cfg = dict(factors=20, loss="warp", max_samples=20,
+                  learning_schedule="invscaling", device="cuda")
+    ic_cfg = dict(factors=50, loss="warp", max_samples=50, alpha=0.01,
+                  beta=0.1, learning_rate=0.1, learning_schedule="invscaling",
+                  device="cuda")
+    ml = RankFM(**ml_cfg).fit(train, epochs=1)
+    ml_f = RankFM(**ml_cfg, beta=0.1).fit(
+        train, epochs=1,
+        user_features=feature_frame(ml_uf, np.unique(train[:, 0]), "user"),
+        item_features=feature_frame(ml_if, np.unique(train[:, 1]), "item"))
+    ic = RankFM(**ic_cfg).fit(ic_train, sample_weight=sw, epochs=1)
+    win = RankFM(**ml_cfg, use_fused=False).fit(train, epochs=1)
+    mp, fp, ip = (m.last_fit_plan_ for m in (ml, ml_f, ic))
+    engines = [
+        ("ML-1M main", fused_engine(torch, fused, ml, mp.chunk,
+                                    mp.user_block)),
+        ("ML-1M chunk-tail", fused_engine(torch, fused, ml, 128, 256)),
+        ("featured ML-1M", fused_engine(torch, fused, ml_f, fp.chunk,
+                                        fp.user_block)),
+        ("Instacart fused", fused_engine(torch, fused, ic, ip.chunk,
+                                         ip.user_block)),
+        (f"Instacart wide tail ({WIDE_NW} windows)", fused_engine(
+            torch, fused, ic, ip.chunk, ip.user_block, n_windows=WIDE_NW)),
+        ("ML-1M pre-shuffled (R = 4)", fused_engine(
+            torch, fused, ml, mp.chunk, mp.user_block, pre_shuffled=True)),
+        ("Instacart candidate", xla_engine(torch, training, ic,
+                                           "candidate")),
+        ("ML-1M window step", xla_engine(torch, training, win, "window")),
+    ]
+    reset_launches(torch, fused, scatter)
+    out = {}
+    for tag, (fn, tables, batches) in engines:
+        out[tag] = graph_vs_eager(torch, fused, scatter, tag, fn, tables,
+                                  batches)
+    counts = launches_of(fused, scatter)
+    check(all(v > 0 for k, v in counts.items()),
+          f"phase 14 launches {counts}")
+    return counts, out
+
+
 def tree_times(tree):
     """The times of another tree of this repository (``--times-of`` in a
     process of its own): ``{"b1": {"shape": times}, "update": {"case/kernel":
@@ -2321,6 +2683,10 @@ def run(args):
     if args.deterministic_fits:
         deterministic_fits(torch, RankFM, train, instacart_data())
         return 0
+    if args.only_graphs:
+        graph_phase(torch, RankFM, fused, scatter, training, train,
+                    instacart_data())
+        return 0
     if args.times_of:
         # phases 3, 4, 5, 6 and 9 of another tree, through what both trees
         # have
@@ -2397,6 +2763,11 @@ def run(args):
 
     # 13. the same fits twice from one seed
     paths.append(repro_phase(torch, RankFM, fused, scatter, train, ic_data))
+
+    # 14. each single-device epoch, eager against its CUDA graph
+    counts, _ = graph_phase(torch, RankFM, fused, scatter, training, train,
+                            ic_data)
+    paths.append(counts)
     if args.parent:
         parents.append(tree_times(args.parent))
         print_parent_table(parents, b1_times, up_times, tm_ic["candidate"],
@@ -2476,6 +2847,8 @@ def main():
                          "their times as one JSON line and no result line")
     ap.add_argument("--only-repro", action="store_true",
                     help="phases 1, 2 and 13 only; prints no result line")
+    ap.add_argument("--only-graphs", action="store_true",
+                    help="phases 1, 2 and 14 only; prints no result line")
     ap.add_argument("--deterministic-fits", action="store_true",
                     help="one fit of each engine under "
                          "torch.use_deterministic_algorithms(True) (phase 13 "

@@ -220,8 +220,8 @@ struct Args {
   int* chosen;
   int nT, C, UB, BLK, lg_blk, lg_lw, NW, M;
   float nm1, log_I, mult_bpr;
-  uint32_t seed;
-  float eta, dreg, dreg_f;
+  const int* seed;    // the batch seed, in device memory
+  const float* scal;  // [eta, eta*2*alpha, eta*2*beta], in device memory
   float* pw;  // [C, NW * BLK] pairwise utilities of the chunk, then ut_ui [C]
   int* cnt;   // [2, C] non-member / violator counts, zero between chunks
   unsigned long long* phase_ns;  // null, or [4] ns summed by phase
@@ -496,6 +496,7 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
   uint16_t* s_list = reinterpret_cast<uint16_t*>(FEAT ? s_xu + f.P : s_j + D);
   __shared__ int s_wn[kWarps];  // chosen slots in each warp's segment
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t seed = (uint32_t)__ldg(a.seed);
   float* ll_rows = a.ll_rows + (size_t)c.k * C;
   int* chosen = a.chosen ? a.chosen + (size_t)c.k * C : nullptr;
   // a fixed-point add; an addend out of range or not finite marks the row
@@ -551,7 +552,7 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
     bool found = false;
     if (M > 1) {
       const float r1 =
-          to_u01(philox_word(0u, (uint32_t)row, c.k, 1u, a.seed, 0u));
+          to_u01(philox_word(0u, (uint32_t)row, c.k, 1u, seed, 0u));
       const float p_c = fminf(fmaxf(nv / fmaxf(nn, 1.f), 1e-9f), 1.f - 1e-7f);
       float geo = floorf(logf(fmaxf(1.f - r1, 1e-30f)) / logf(1.f - p_c)) + 1.f;
       if (!(nv > 0.f)) geo = (float)M;
@@ -591,7 +592,7 @@ __device__ void select_scatter(const Args& a, const Chunk& c, float* smem) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             u[i] = to_u01(philox_word((uint32_t)(4 * q + i), (uint32_t)row, c.k,
-                                      0u, a.seed, 0u));
+                                      0u, seed, 0u));
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -802,7 +803,8 @@ __device__ void apply_updates(const Args& a, const Chunk& c) {
   const int tid = threadIdx.x, lane = tid & 31;
   const int gw = blockIdx.x * kWarps + (tid >> 5);
   const int n_warps = gridDim.x * kWarps;
-  const float cdec = fmaxf(1.f - a.dreg, 1e-8f), ldec = logf(cdec);
+  const float eta = __ldg(a.scal), dreg = __ldg(a.scal + 1);
+  const float cdec = fmaxf(1.f - dreg, 1e-8f), ldec = logf(cdec);
   const int rows = UB + (1 + NW) * BLK;
   // first item of each occurrence's block: [positive, window 0, ...]
   __shared__ int s_base[kMaxNW + 1];
@@ -825,7 +827,7 @@ __device__ void apply_updates(const Args& a, const Chunk& c) {
       if (p < UB) {  // user row: factors only, col F stays 1
         if (cnts[i] != 0.f)
           decay_row(a.tab_u + (size_t)(c.ub + p) * D, a.acc_u + (size_t)p * D,
-                    cnts[i], F, D, a.eta, cdec, ldec, lane);
+                    cnts[i], F, D, eta, cdec, ldec, lane);
         continue;
       }
       // factors and bias of an item row, col F+1 stays 0
@@ -839,14 +841,14 @@ __device__ void apply_updates(const Args& a, const Chunk& c) {
       if (!first) continue;
       float* t = a.tab_i + (size_t)(b + r) * D;
       if (cnts[i] != 0.f)
-        decay_row(t, a.acc_u + (size_t)p * D, cnts[i], F + 1, D, a.eta, cdec,
+        decay_row(t, a.acc_u + (size_t)p * D, cnts[i], F + 1, D, eta, cdec,
                   ldec, lane);
       if (last) continue;
       for (int q = q0 + 1; q <= NW; ++q) {  // the block was drawn again
         if (s_base[q] != b) continue;
         unsigned long long* g = a.acc_u + (size_t)(UB + q * BLK + r) * D;
         const float cnt = unfix(__ldcg(g + F + 1));
-        if (cnt != 0.f) decay_row(t, g, cnt, F + 1, D, a.eta, cdec, ldec, lane);
+        if (cnt != 0.f) decay_row(t, g, cnt, F + 1, D, eta, cdec, ldec, lane);
       }
     }
   }
@@ -856,7 +858,7 @@ __device__ void apply_updates(const Args& a, const Chunk& c) {
     // v_uf / v_if decay by the row's touch count, w_if (tab_if col F) by the
     // chunk's count of rows with a negative; tab_uf col F stays 0.
     const Feat& f = a.f;
-    const float cdf = fmaxf(1.f - a.dreg_f, 1e-8f), ldf = logf(cdf);
+    const float cdf = fmaxf(1.f - __ldg(a.scal + 2), 1e-8f), ldf = logf(cdf);
     const int np = UF ? f.P : 0, nf = np + (IF ? f.Q : 0);
     for (int p = n_warps - 1 - gw; p < nf; p += n_warps) {
       const bool is_uf = p < np;
@@ -873,7 +875,7 @@ __device__ void apply_updates(const Args& a, const Chunk& c) {
           continue;
         }
         float ck, gf;
-        decay_factors(k == F ? n_ok : cnt, a.eta, cdf, ldf, &ck, &gf);
+        decay_factors(k == F ? n_ok : cnt, eta, cdf, ldf, &ck, &gf);
         t[k] = t[k] * ck + gf * unfix(g[k]);
         g[k] = 0ull;
       }
@@ -909,6 +911,14 @@ fused_batch_kernel(Args a) {
       t0 = t;
     }
   };
+  if constexpr (UF || IF) {
+    // the scratch persists from batch to batch: the per-chunk counts of
+    // rows with a negative start at zero (their first add comes two grid
+    // barriers later, in chunk 0's selection)
+    for (int k = blockIdx.x * kThreads + threadIdx.x; k < a.nT;
+         k += gridDim.x * kThreads)
+      a.f.n_ok[k] = 0.f;
+  }
   for (int k = 0; k < a.nT; ++k) {
     const Chunk c = chunk_of(a, k);
     if constexpr (UF || IF) {
@@ -1015,21 +1025,27 @@ int run_batch(Args a, unsigned long long* acc, float* facc, cudaStream_t st) {
 
 }  // namespace
 
-// One batch of nT chunks in one cooperative launch on `stream`. `acc` is a
-// zeroed 64-bit scratch of (UB + (1 + NW) * BLK + P + Q) * D words (P and Q
-// only with side features; zero again when the kernel ends), the fixed-point
-// accumulator; `pw` an f32 scratch of C * NW * BLK + C floats (any
-// contents); `cnt` a zeroed int scratch of 2 * C (zero again when the kernel
-// ends); `ll_rows` gets each row's log-likelihood term and, when not null,
-// `chosen` each row's lowest chosen window slot (-1: none); when not null,
-// `phase_ns` (4 x uint64) gains the nanoseconds block 0 spent in each phase.
-// NW <= 64 and D <= 128.
+// One batch of nT chunks in one cooperative launch on `stream`. The batch's
+// scalars are read from device memory when the kernel runs, so that a CUDA
+// graph can replay the launch for another epoch: `seed` points to the batch
+// seed (int32) and `scal` to [eta, eta * 2 * alpha, eta * 2 * beta] (f32).
+// `acc` is a zeroed 64-bit scratch of (UB + (1 + NW) * BLK + P + Q) * D
+// words (P and Q only with side features; zero again when the kernel ends),
+// the fixed-point accumulator; `pw` an f32 scratch of C * NW * BLK + C
+// floats (any contents); `cnt` a zeroed int scratch of 2 * C (zero again
+// when the kernel ends); `ll_rows` gets each row's log-likelihood term and,
+// when not null, `chosen` each row's lowest chosen window slot (-1: none);
+// when not null, `phase_ns` (4 x uint64) gains the nanoseconds block 0
+// spent in each phase. NW <= 64 and D <= 128. The wrapper keeps the scratch
+// from one launch to the next.
 //
 // Side features: `x_uf` [U_pad, P] with `tab_uf` [P, D] and/or `x_if`
 // [I_pad, Q] with `tab_if` [Q, D] (null and 0 when absent, Q <= 256);
-// `facc` is then a zeroed f32 scratch of (nu + ni) * D + P + Q + nT floats,
-// nu = UB with user features, ni = (1 + NW) * BLK with item features;
-// `dreg_f` is eta * 2 * beta. The feature tables are updated in place.
+// `facc` is then an f32 scratch of (nu + ni) * D + P + Q + nT floats,
+// nu = UB with user features, ni = (1 + NW) * BLK with item features: the
+// representations (any contents), the P + Q touch counts (zeroed; zero
+// again when the kernel ends) and the nT per-chunk counts (any contents:
+// the kernel zeroes them). The feature tables are updated in place.
 //
 // Returns the CUDA error of the launch, 0 when it was accepted, or minus
 // the bytes of shared memory a block needs when the selection's row needs
@@ -1044,10 +1060,10 @@ extern "C" int rfm_fused_batch(float* tab_u, float* tab_i, int D, int F,
                                int* chosen,
                                int nT, int C, int UB, int BLK, int NW, int M,
                                float nm1, float log_I, float mult_bpr,
-                               unsigned int seed, float eta, float dreg,
+                               const int* seed, const float* scal,
                                const float* x_uf, const float* x_if,
                                float* tab_uf, float* tab_if, int P, int Q,
-                               float* facc, float dreg_f, float* pw, int* cnt,
+                               float* facc, float* pw, int* cnt,
                                unsigned long long* phase_ns, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a = {};
@@ -1073,9 +1089,7 @@ extern "C" int rfm_fused_batch(float* tab_u, float* tab_i, int D, int F,
   a.log_I = log_I;
   a.mult_bpr = mult_bpr;
   a.seed = seed;
-  a.eta = eta;
-  a.dreg = dreg;
-  a.dreg_f = dreg_f;
+  a.scal = scal;
   a.pw = pw;
   a.cnt = cnt;
   a.phase_ns = phase_ns;

@@ -127,9 +127,10 @@ __device__ __forceinline__ void finish_row(float* t, float* bias,
 __global__ void __launch_bounds__(kThreads)
 inplace_update(float* tab, float* bias, int N, int F,
                const int* __restrict__ idx, const float* __restrict__ upd,
-               int B2, int* claim, unsigned long long* acc, float eta, float c,
-               float lim) {
+               int B2, int* claim, unsigned long long* acc,
+               const float* __restrict__ scal, float lim) {
   cg::grid_group grid = cg::this_grid();
+  const float eta = __ldg(scal), c = __ldg(scal + 1);
   const int D = F + 2, A = F + 3;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int threads = gridDim.x * blockDim.x;
@@ -167,8 +168,10 @@ inplace_update(float* tab, float* bias, int N, int F,
 __global__ void __launch_bounds__(kThreads)
 dense_update(float* tab, float* bias, int N, int F,
              const int* __restrict__ idx, const float* __restrict__ upd,
-             int B2, unsigned long long* acc, float eta, float c, float lim) {
+             int B2, unsigned long long* acc, const float* __restrict__ scal,
+             float lim) {
   cg::grid_group grid = cg::this_grid();
+  const float eta = __ldg(scal), c = __ldg(scal + 1);
   const int D = F + 2, A = F + 3;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int threads = gridDim.x * blockDim.x;
@@ -238,37 +241,39 @@ static float fix_limit(int B2) { return 1073741824.0f / (float)B2; }
 
 // B3 in place: `claim` is an int32 scratch of N words and `acc` a 64-bit
 // scratch of B2 * (F + 3) words, both all-zero on entry; the kernel leaves
-// them all-zero. `bias` may be null. One cooperative launch on `stream`;
+// them all-zero. `bias` may be null. `scal` points to [eta, c] (f32) in
+// device memory, read when the kernel runs (a CUDA graph replays the launch
+// at another epoch's rate). One cooperative launch on `stream`;
 // returns its CUDA error (0 when it was accepted). Two launches that share
 // the scratch must be on one stream.
 extern "C" int rfm_table_update_sorted(float* tab, float* bias, int N, int F,
                                        const int* idx, const float* upd,
                                        int B2, int* claim,
-                                       unsigned long long* acc, float eta,
-                                       float c, void* stream) {
+                                       unsigned long long* acc,
+                                       const float* scal, void* stream) {
   if (B2 <= 0 || N <= 0) return 0;
   static int cache[kMaxDevices];
   const void* kernel = reinterpret_cast<const void*>(inplace_update);
   float lim = fix_limit(B2);
-  void* args[] = {&tab, &bias, &N, &F, &idx, &upd, &B2, &claim, &acc, &eta,
-                  &c, &lim};
+  void* args[] = {&tab, &bias, &N, &F, &idx, &upd, &B2, &claim, &acc, &scal,
+                  &lim};
   return launch(kernel, cache, (long long)B2 * 32, args,
                 static_cast<cudaStream_t>(stream));
 }
 
 // B2: `acc` is a 64-bit scratch of N * (F + 3) words, all-zero on entry;
-// the kernel leaves it all-zero. `bias` may be null. One cooperative launch
+// the kernel leaves it all-zero. `bias` may be null; `scal` as for B3. One cooperative launch
 // on `stream`; returns its CUDA error (0 when it was accepted). Two launches
 // that share `acc` must be on one stream.
 extern "C" int rfm_table_update_dense(float* tab, float* bias, int N, int F,
                                       const int* idx, const float* upd,
                                       int B2, unsigned long long* acc,
-                                      float eta, float c, void* stream) {
+                                      const float* scal, void* stream) {
   if (B2 <= 0 || N <= 0) return 0;
   static int cache[kMaxDevices];
   const void* kernel = reinterpret_cast<const void*>(dense_update);
   float lim = fix_limit(B2);
-  void* args[] = {&tab, &bias, &N, &F, &idx, &upd, &B2, &acc, &eta, &c, &lim};
+  void* args[] = {&tab, &bias, &N, &F, &idx, &upd, &B2, &acc, &scal, &lim};
   const long long a = (long long)B2 * 32, b = (long long)N * 32;
   return launch(kernel, cache, a > b ? a : b, args,
                 static_cast<cudaStream_t>(stream));

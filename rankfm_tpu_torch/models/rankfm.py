@@ -44,6 +44,7 @@ import torch
 from rankfm_tpu_torch import native
 from rankfm_tpu_torch.models.planner import FitSpec, plan_fit
 from rankfm_tpu_torch.ops import fused as fused_mod
+from rankfm_tpu_torch.ops import graph as graph_mod
 from rankfm_tpu_torch.ops import scoring, topk, training
 from rankfm_tpu_torch.ops.negatives import build_bitmap_words
 from rankfm_tpu_torch.parallel.fused import make_fused_dp_epoch_fn
@@ -239,13 +240,25 @@ class _FitRun:
             epoch_fn = training.epoch_body(step, bs_x)
         # the steps update the item and user tables in place: train copies,
         # so arrays handed out before this fit (`_weights`, `v_i`, ...; on
-        # the CPU these are views) keep their values
+        # the CPU these are views) keep their values. The copies are the
+        # epoch graph's static tables: the new feature tables an epoch
+        # returns are copied into them
         w = {k: v.clone() for k, v in m.gather_weights().items()}
+
+        def train(t, epoch, eta):
+            t_new, ll = epoch_fn(
+                t, m._x_uf_dev, m._x_if_dev, hist, u, i, sw, n, eta,
+                m.alpha, m.beta, m.seed, epoch)
+            for k, v in t_new.items():
+                if v is not t[k]:
+                    t[k].copy_(v)
+            return ll
+
+        # one device: every epoch replays one CUDA graph; else eager
+        run = graph_mod.epoch_runner(train, w, dev, m.mesh, name=step_kind)
         for epoch in epochs:
             t0 = time.time()
-            w, ll = epoch_fn(
-                w, m._x_uf_dev, m._x_if_dev, hist, u, i, sw, n,
-                self.eta(epoch), m.alpha, m.beta, m.seed, self.rng_off + epoch)
+            ll = run(self.rng_off + epoch, self.eta(epoch))
             m._w = w
             self.log_epoch(epoch, _ll_guard(ll, list(w.values())),
                            time.time() - t0)
@@ -303,8 +316,8 @@ class _FitRun:
             np.ascontiguousarray(m.sample_weight).tobytes()).digest()
 
         def layout_for(chunk, ub):
-            """``(rec on the device, group, cids, ublk, iblk on the host)``,
-            cached on the model under the ingest hash (no hash, no cache)."""
+            """``(rec, group, cids, ublk, iblk)`` on the device, cached on
+            the model under the ingest hash (no hash, no cache)."""
             rec_key = (m._ingest_hash, plan.batch_size, chunk, ub, self.n,
                        sw_hash)
             cache = m._rec_cache if isinstance(m._rec_cache, dict) else {}
@@ -316,9 +329,8 @@ class _FitRun:
                     m.sample_weight, U, num_items, plan.batch_size, chunk,
                     ub=ub),
                 chunk, U, num_items, ub=ub)
-            layout = (torch.from_numpy(rec).to(dev), torch.from_numpy(group),
-                      torch.from_numpy(cids), torch.from_numpy(ublk),
-                      torch.from_numpy(iblk))
+            layout = tuple(torch.from_numpy(a).to(dev)
+                           for a in (rec, group, cids, ublk, iblk))
             if m._ingest_hash is not None:
                 while len(cache) >= 4:  # both schedule layouts + headroom
                     cache.pop(next(iter(cache)))
@@ -340,7 +352,8 @@ class _FitRun:
             if r not in shuffled:
                 rec, group = main_layout[:2]
                 shuffled[r] = shuffle(rec, group, fused_mod.shuffle_bits(
-                    fused_mod.layout_generator(m.seed, r), rec.shape[0]))
+                    fused_mod.layout_key(m.seed, r, device=dev),
+                    rec.shape[0]))
             return shuffled[r]
 
         if m.mesh is not None:
@@ -380,20 +393,39 @@ class _FitRun:
         self.pull = pull_back
 
         def run_epochs(epochs, chunk, ub, layout, n_windows, pre_shuffled):
-            live = [t for t in (tab_u, tab_i, tab_uf, tab_if) if t is not None]
+            tables = dict(tab_u=tab_u, tab_i=tab_i, tab_uf=tab_uf,
+                          tab_if=tab_if)
+            live = [t for t in tables.values() if t is not None]
             # one device, or this rank of the data-parallel mesh
             epoch_fn = make_fused_dp_epoch_fn(
                 m.mesh, U, num_items, F, plan.max_samples, plan.batch_size,
                 chunk, ub=ub, n_windows=n_windows,
                 sync_every=m.dp_sync_every, pre_shuffled=pre_shuffled)
+            # one runner per layout (each pre-shuffled layout r its own):
+            # on one device a CUDA graph captured at its first epoch
+            runners = {}
+
+            def runner(epoch):
+                r = (self.rng_off + epoch) % R if pre_shuffled else -1
+                if r not in runners:
+                    lay = ((rec_for(epoch),) + layout[1:] if pre_shuffled
+                           else layout)
+
+                    def train(t, e, eta):
+                        return epoch_fn(
+                            t["tab_u"], t["tab_i"], packed, lay, eta,
+                            m.alpha, m.seed, e, x_uf=x_uf, x_if=x_if,
+                            tab_uf=t["tab_uf"], tab_if=t["tab_if"],
+                            beta=m.beta)
+
+                    runners[r] = graph_mod.epoch_runner(
+                        train, tables, dev, m.mesh,
+                        name=f"fused, chunk {chunk}")
+                return runners[r]
+
             for epoch in epochs:
                 t0 = time.time()
-                lay = ((rec_for(epoch),) + layout[1:] if pre_shuffled
-                       else layout)
-                ll = epoch_fn(
-                    tab_u, tab_i, packed, lay, self.eta(epoch), m.alpha,
-                    m.seed, self.rng_off + epoch, x_uf=x_uf, x_if=x_if,
-                    tab_uf=tab_uf, tab_if=tab_if, beta=m.beta)
+                ll = runner(epoch)(self.rng_off + epoch, self.eta(epoch))
                 self.log_epoch(epoch, _ll_guard(ll, live), time.time() - t0)
 
         # chunk-tail schedule: the closing epochs run at the oracle-parity

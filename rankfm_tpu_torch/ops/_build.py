@@ -40,23 +40,21 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "fused_chunk": {
         # tab_u, tab_i, D, F, rec, packed, W, blk, ublk, iblk, acc, ll_rows,
-        # chosen, nT, C, UB, BLK, NW, M, nm1, log_I, mult_bpr, seed, eta,
-        # dreg, x_uf, x_if, tab_uf, tab_if, P, Q, facc, dreg_f, pw, cnt,
-        # phase_ns, stream
+        # chosen, nT, C, UB, BLK, NW, M, nm1, log_I, mult_bpr, seed, scal,
+        # x_uf, x_if, tab_uf, tab_if, P, Q, facc, pw, cnt, phase_ns, stream
         "rfm_fused_batch": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                             _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                            ctypes.c_uint, _F, _F, _P, _P, _P, _P, _I, _I,
-                            _P, _F, _P, _P, _P, _P],
+                            _P, _P, _P, _P, _P, _P, _I, _I,
+                            _P, _P, _P, _P, _P],
         # n, cooperative, stream
         "rfm_phase_probe": [_I, _I, _P],
     },
     "table_update": {
-        # tab, bias, N, F, idx, upd, B2, claim, acc, eta, c, stream
+        # tab, bias, N, F, idx, upd, B2, claim, acc, scal, stream
         "rfm_table_update_sorted": [_P, _P, _I, _I, _P, _P, _I, _P, _P,
-                                    _F, _F, _P],
-        # tab, bias, N, F, idx, upd, B2, acc, eta, c, stream
-        "rfm_table_update_dense": [_P, _P, _I, _I, _P, _P, _I, _P, _F, _F,
-                                   _P],
+                                    _P, _P],
+        # tab, bias, N, F, idx, upd, B2, acc, scal, stream
+        "rfm_table_update_dense": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
     },
 }
 

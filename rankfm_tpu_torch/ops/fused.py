@@ -36,8 +36,9 @@ What the port drops, because it carries no semantics: the 128-lane tables
 and the item bias on the item side, col F+1 = 0 at rest), the lane-padded
 window columns (the kernel reads the ``[U, NBLK*BLK/16]`` pack directly),
 the 8-bit bf16 membership planes, the bf16 MXU casts, SUB sub-rounds and
-revolving DMAs. Random draws come from a counter-based Philox stream
-(`_philox`) instead of the TPU's hardware generator.
+revolving DMAs. Random draws come from counter-based Philox keys
+(`_philox`) instead of the TPU's hardware generator, the epoch's draws on
+the device as the JAX package's jitted epoch makes them.
 """
 
 from __future__ import annotations
@@ -49,7 +50,12 @@ import numpy as np
 import torch
 
 from rankfm_tpu_torch.ops import _philox
-from rankfm_tpu_torch.ops.scatter import decay_rows
+# the keys of an epoch's and of a pre-shuffled layout's draws (the JAX
+# package's ``fold_in(PRNGKey(seed), epoch)``, and ``fold_in(key, device)``
+# for a mesh rank r > 0; ``fold_in(fold_in(PRNGKey(seed), 2**31 - 7), r)``)
+from rankfm_tpu_torch.ops._philox import epoch_key, layout_key  # noqa: F401
+from rankfm_tpu_torch.ops.scatter import (_current_stream, decay_rows,
+                                          device_scalar, device_scalars)
 
 LANES = 128          # TPU lane width: only the eligibility rule reads it
 BITS_PER_LANE = 16
@@ -464,7 +470,10 @@ def select_key(pw, nonmem, u01, r1, M, num_items):
 
 
 def _decay_c(dreg):
-    """The per-touch decay factor ``max(1 - dreg, 1e-8)`` in f32."""
+    """The per-touch decay factor ``max(1 - dreg, 1e-8)`` in f32 (a 0-dim
+    tensor when ``dreg`` is one)."""
+    if isinstance(dreg, torch.Tensor):
+        return torch.clamp(1.0 - dreg, min=1e-8)
     return float(np.maximum(np.float32(1.0) - np.float32(dreg),
                             np.float32(1e-8)))
 
@@ -620,8 +629,8 @@ def _step_args(dreg, tab_u, tab_i, x_uf, x_if, tab_uf, tab_if):
                 f"fused_batch: {side} features have {x.shape[0]} rows, the "
                 f"{side} table {rows.shape[0]} (pad_feature_cols)")
     featured = tab_uf is not None or tab_if is not None
-    pair = (float(dreg[0]), float(dreg[1]))
-    return pair, ((x_uf, x_if, tab_uf, tab_if) if featured else None)
+    return (dreg[0], dreg[1]), ((x_uf, x_if, tab_uf, tab_if) if featured
+                                else None)
 
 
 def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
@@ -634,7 +643,9 @@ def fused_batch_reference(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed,
     int32 history pack, ``blk [nT, NW]``, ``ublk [nT]``, ``iblk [nT]`` int32
     block ids, ``ub_rows`` the user block's rows (`user_block`), ``seed``
     the batch seed, ``dreg`` the pair ``(eta * 2 * alpha, eta * 2 * beta)``
-    (the JAX kernel's ``dreg``). Updates ``tab_u``/``tab_i`` IN
+    (the JAX kernel's ``dreg``). ``seed``, ``eta`` and ``dreg`` may be
+    numbers or tensors (0-dim, 0-dim and ``[2]``), as an epoch hands them
+    over without reading them on the host. Updates ``tab_u``/``tab_i`` IN
     PLACE, chunk after chunk, and returns the batch's log-likelihood (0-dim
     f32). The random draws are the kernel's Philox stream
     (`_philox.chunk_draws`).
@@ -784,6 +795,44 @@ def _check(name, t, dtype, device, ndim):
             f"{t.device} (contiguous={t.is_contiguous()})")
 
 
+# (device index, stream, shapes) -> the kernel's scratch tensors; the
+# newest `_SCRATCH_MAX` are kept
+_scratch = {}
+_SCRATCH_MAX = 16
+
+
+def scratch(device, stream, nT, C, UB, BLK, NW, D, P=0, Q=0, has_uf=False,
+            has_if=False):
+    """The persistent scratch of the kernel for one batch shape on
+    ``device`` and the CUDA stream with the handle ``stream``
+    (`scratch_sizes`, as `scatter.scratch` keeps B2's and B3's): ``acc``,
+    ``cnt`` and ``facc`` zeroed, ``pw`` uninitialised, and ``ll_rows``
+    (``[nT*C]`` f32, the rows' ll terms), allocated at the first call and
+    reused by every later one.
+
+    The kernel restores what it finds zeroed: it clears each accumulator
+    row of ``acc`` as it applies it, each row's counts of ``cnt`` as it
+    reads them, the feature touch counts of ``facc`` as it applies them and
+    its per-chunk counts of rows with a negative when it starts, so no call
+    clears anything. Per stream, like `scatter.scratch`: launches on one
+    stream run in order."""
+    n = scratch_sizes(nT, C, UB, BLK, NW, D, P, Q, has_uf, has_if)
+    key = (device.index, stream, nT, C, tuple(sorted(n.items())))
+    bufs = _scratch.get(key)
+    if bufs is None:
+        while len(_scratch) >= _SCRATCH_MAX:
+            _scratch.pop(next(iter(_scratch)))
+        bufs = _scratch[key] = {
+            "acc": torch.zeros(n["acc"], dtype=torch.int64, device=device),
+            "pw": torch.empty(n["pw"], dtype=torch.float32, device=device),
+            "cnt": torch.zeros(n["cnt"], dtype=torch.int32, device=device),
+            "facc": (torch.zeros(n["facc"], dtype=torch.float32,
+                                 device=device) if n["facc"] else None),
+            "ll_rows": torch.empty(nT * C, dtype=torch.float32,
+                                   device=device)}
+    return bufs
+
+
 def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
             F, M, UB, num_items, chosen, feats, phase_ns=None,
             ll_rows=None):
@@ -834,15 +883,13 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
                 ("x_uf", x_uf), ("tab_uf", tab_uf), ("x_if", x_if),
                 ("tab_if", tab_if)) if t is not None)
             + f"F={F} UB={UB} num_items={num_items}")
-    n = scratch_sizes(nT, C, UB, BLK, NW, D, P, Q, x_uf is not None,
-                      x_if is not None)
-    acc = torch.zeros(n["acc"], dtype=torch.int64, device=dev)
-    pw = torch.empty(n["pw"], dtype=torch.float32, device=dev)
-    cnt = torch.zeros(n["cnt"], dtype=torch.int32, device=dev)
-    facc = (torch.zeros(n["facc"], dtype=torch.float32, device=dev)
-            if feats else None)
+    stream = _current_stream(dev)
+    scr = scratch(dev, stream, nT, C, UB, BLK, NW, D, P, Q, x_uf is not None,
+                  x_if is not None)
     if ll_rows is None:
-        ll_rows = torch.empty(nT * C, dtype=torch.float32, device=dev)
+        ll_rows = scr["ll_rows"]
+    seed_t = device_scalar(seed, torch.int32, dev)
+    scal = device_scalars(dev, eta, dreg[0], dreg[1])
     log_I = math.log(num_items) if num_items > 1 else 1.0
 
     def ptr(t):
@@ -855,13 +902,13 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
         tab_u.data_ptr(), tab_i.data_ptr(), D, F,
         rec.data_ptr(), packed.data_ptr(), packed.shape[1],
         blk.data_ptr(), ublk.data_ptr(), iblk.data_ptr(),
-        acc.data_ptr(), ll_rows.data_ptr(), ptr(chosen),
+        scr["acc"].data_ptr(), ll_rows.data_ptr(), ptr(chosen),
         nT, C, UB, BLK, NW, M, float(num_items - 1), log_I,
         math.log(max(num_items - 1, 1)) / log_I,
-        int(seed) & 0xFFFFFFFF, float(eta), dreg[0],
-        ptr(x_uf), ptr(x_if), ptr(tab_uf), ptr(tab_if), P, Q, ptr(facc),
-        dreg[1], pw.data_ptr(), cnt.data_ptr(), ptr(phase_ns),
-        torch.cuda.current_stream(dev).cuda_stream)
+        seed_t.data_ptr(), scal.data_ptr(),
+        ptr(x_uf), ptr(x_if), ptr(tab_uf), ptr(tab_if), P, Q,
+        ptr(scr["facc"]), scr["pw"].data_ptr(), scr["cnt"].data_ptr(),
+        ptr(phase_ns), stream)
     if err < 0:
         raise ValueError(
             f"fused_batch: {NW} windows of {BLK} items need {-err} bytes of "
@@ -878,27 +925,38 @@ def _launch(tab_u, tab_i, rec, packed, blk, ublk, iblk, seed, eta, dreg,
 # one epoch
 # ---------------------------------------------------------------------------
 
-def epoch_generator(seed, epoch):
-    """The CPU generator of one epoch's draws, keyed by (seed, epoch): the
-    JAX package's ``fold_in(PRNGKey(seed), epoch)``."""
-    state = np.random.SeedSequence([int(seed), int(epoch)]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator().manual_seed(int(state) & (2**63 - 1))
+def draw_window_blocks(key, shape, num_items):
+    """int32 window-block ids of ``shape`` drawn under ``key``, each block
+    with probability proportional to its real item count
+    (`window_block_cdf`): a uniform item of the catalog, and its block."""
+    return window_blocks(_philox.bits(key, _philox.STREAM_BLOCKS,
+                                      math.prod(shape)), shape, num_items)
 
 
-def draw_window_blocks(gen, shape, num_items):
-    """int32 window-block ids of ``shape``, catalog-size-weighted, on the
-    generator's device."""
-    real_cum = torch.as_tensor(window_block_cdf(num_items), dtype=torch.float32,
-                               device=gen.device)
-    x = torch.rand(shape, generator=gen, device=gen.device) * float(num_items)
-    return torch.searchsorted(real_cum, x, right=True).to(torch.int32)
+def window_blocks(x, shape, num_items):
+    """`draw_window_blocks` of the stream's 32-bit draws ``x``."""
+    lg = block_size(num_items).bit_length() - 1
+    return (_philox.below(x, num_items) >> lg).to(torch.int32).reshape(shape)
 
 
-def shuffle_bits(gen, n):
-    """``n`` 32-bit random draws (int64 in ``[0, 2^32)``) from ``gen``: the
-    draws of one segmented shuffle."""
-    return torch.randint(0, 2**32, (n,), generator=gen, dtype=torch.int64)
+def shuffle_bits(key, n):
+    """``n`` 32-bit random draws (int64 in ``[0, 2^32)``) under ``key``: the
+    draws of one segmented shuffle, on the key's device."""
+    return _philox.bits(key, _philox.STREAM_SHUFFLE, n)
+
+
+def rotation(key, nb):
+    """The batch order of one epoch: ``(arange(nb) + r) % nb`` for a
+    rotation ``r`` drawn under ``key``, on the key's device (the JAX
+    package's ``jnp.roll`` by a drawn ``r``)."""
+    r = _philox.below(_philox.bits(key, _philox.STREAM_ROTATION, 1), nb)
+    return (torch.arange(nb, device=key.device) + r) % nb
+
+
+def batch_seeds(key, nb):
+    """The ``nb`` batch seeds (int32 in ``[0, 2^31)``) drawn under
+    ``key``: the key of the kernel's draws in each batch."""
+    return (_philox.bits(key, _philox.STREAM_SEEDS, nb) >> 1).to(torch.int32)
 
 
 def shuffle_rnd_bits(num_users, num_items, ub=None):
@@ -913,13 +971,13 @@ def group_keys(group, rnd_bits, rnd):
     """Segmented-shuffle sort keys: the group id in the high bits, the top
     ``rnd_bits`` of each 32-bit draw of ``rnd`` in the low bits
     (`rankfm_tpu/ops/fused.py:1310-1313`)."""
-    return (group.to(torch.int64) << rnd_bits) | (
+    return (group.to(rnd.device, torch.int64) << rnd_bits) | (
         rnd.to(torch.int64) >> (32 - rnd_bits))
 
 
-def shuffle_keys(group, rnd_bits, gen):
-    """One epoch's segmented-shuffle sort keys, drawn from ``gen``."""
-    return group_keys(group, rnd_bits, shuffle_bits(gen, group.shape[0]))
+def shuffle_keys(group, rnd_bits, key):
+    """One epoch's segmented-shuffle sort keys, drawn under ``key``."""
+    return group_keys(group, rnd_bits, shuffle_bits(key, group.shape[0]))
 
 
 def make_shuffle_fn(num_users, num_items, ub=None):
@@ -936,28 +994,6 @@ def make_shuffle_fn(num_users, num_items, ub=None):
         return rec[torch.sort(keys, stable=True).indices]
 
     return shuffle
-
-
-def layout_generator(seed, r):
-    """The CPU generator of pre-shuffled layout ``r`` of a fit, keyed by
-    ``(seed, 2**31 - 7, r)``: the JAX package's
-    ``fold_in(fold_in(PRNGKey(seed), 2**31 - 7), r)``."""
-    state = np.random.SeedSequence(
-        [int(seed), 2**31 - 7, int(r)]).generate_state(1, np.uint64)[0]
-    return torch.Generator().manual_seed(int(state) & (2**63 - 1))
-
-
-def rank_generator(gen, seed, epoch, rank):
-    """The generator of one rank's own draws in one epoch on a mesh: rank 0
-    continues ``gen`` (so a one-rank mesh draws what one device draws),
-    rank ``r > 0`` a generator on ``gen``'s device keyed by ``(seed, epoch,
-    r)`` (the JAX package's ``fold_in(key, device)``)."""
-    if rank == 0:
-        return gen
-    state = np.random.SeedSequence(
-        [int(seed), int(epoch), int(rank)]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=gen.device).manual_seed(
-        int(state) & (2**63 - 1))
 
 
 def sync_group_size(sync_every, nb):
@@ -994,13 +1030,17 @@ def fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     rotation of the batch order, per-batch seeds and per-chunk window
     draws, then `fused_batch` for each batch in order.
 
-    ``layout`` is `make_records_grouped`'s tuple with ``rec`` on the
-    tables' device and the rest as CPU tensors. ``pre_shuffled``: ``rec``
-    is already shuffled (one of the fit's ``shuffle_layouts``,
-    `make_shuffle_fn`) and the epoch does not sort; it still draws the
-    shuffle's bits, so that every other draw is the sorting epoch's and
-    only the row order differs. Side features come as in
-    `fused_batch_reference` (``x_uf`` padded to the user table's rows,
+    ``layout`` is `make_records_grouped`'s tuple of tensors (on the
+    tables' device for a CUDA graph to capture the epoch; others are
+    copied there). Every draw is a function of ``(seed, epoch)`` computed
+    on the device (`epoch_key`: the shuffle, the rotation, the batch seeds,
+    the window blocks), and ``epoch`` and ``eta`` may be 0-dim tensors on
+    the device: nothing of the epoch is read back on the host, so a CUDA
+    graph can capture it (`ops.graph`). ``pre_shuffled``: ``rec`` is
+    already shuffled (one of the fit's ``shuffle_layouts``,
+    `make_shuffle_fn`) and the epoch does not sort; every other draw is the
+    sorting epoch's, and only the row order differs. Side features come as
+    in `fused_batch_reference` (``x_uf`` padded to the user table's rows,
     ``x_if`` to the item table's), with ``beta`` their L2 rate. Updates the
     tables in place; returns the epoch log-likelihood (0-dim f32 on the
     device)."""
@@ -1024,14 +1064,15 @@ def dp_fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     ``layout``'s ``cids``/``ublk``/``iblk`` are `split_layout_for_mesh`'s
     device-major split; this rank visits its share of every global batch
     (``batch_size`` rows, ``batch_size / mesh.size`` on each rank). The
-    shuffle and the batch rotation are drawn from the epoch's generator
-    and so shared by every rank; the batch seeds and the window blocks come
-    from this rank's generator (`rank_generator`). After every group of
-    `sync_group_size` batches one all-reduce sums the ranks' f32 deltas to
-    ``tab_u``, ``tab_i`` and the feature tables against the group's start; the epoch
-    log-likelihood is summed over the ranks at the end. ``mesh=None`` is
-    one device (`fused_epoch`), and so is a one-rank mesh, bit for bit.
-    ``pre_shuffled`` as in `fused_epoch`.
+    shuffle and the batch rotation are drawn under the epoch's key and so
+    shared by every rank; the batch seeds and the window blocks under this
+    rank's key (``epoch_key(seed, epoch, rank)``; rank 0's is the epoch's
+    own). After every group of `sync_group_size` batches one all-reduce
+    sums the ranks' f32 deltas to ``tab_u``, ``tab_i`` and the feature
+    tables against the group's start; the epoch log-likelihood is summed
+    over the ranks at the end. ``mesh=None`` is one device (`fused_epoch`),
+    and so is a one-rank mesh, bit for bit. ``pre_shuffled``, ``epoch``
+    and ``eta`` as in `fused_epoch`.
 
     ``batch_fn`` replaces `fused_batch` (same signature); tests count
     visits with it."""
@@ -1045,30 +1086,32 @@ def dp_fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
     rnd_bits = shuffle_rnd_bits(num_users, num_items, ub)
     NW = default_n_windows(NBLK) if n_windows is None else n_windows
     nb = cids.shape[0] // n_dev
-    cids, ublk, iblk = (a[rank * nb:(rank + 1) * nb] for a in (cids, ublk,
-                                                               iblk))
+    cids, ublk, iblk = (a[rank * nb:(rank + 1) * nb].to(dev)
+                        for a in (cids, ublk, iblk))
     nT = cids.shape[1]
     UB = user_block(num_users, ub)
-    gen = epoch_generator(seed, epoch)
-
+    # every draw is a function of (seed, epoch, rank) on the device: the
+    # shuffle and the rotation from the epoch's key, shared by the ranks,
+    # the seeds and the window blocks from this rank's (rank 0's is the
+    # epoch's own)
+    key = epoch_key(seed, epoch, device=dev)
+    rkey = key if rank == 0 else epoch_key(seed, epoch, rank, device=dev)
     if pre_shuffled:
-        shuffle_bits(gen, group.shape[0])      # the sort's draws, unused
         rec_s = rec
     else:
-        keys = shuffle_keys(group, rnd_bits, gen).to(dev)
+        keys = shuffle_keys(group.to(dev), rnd_bits, key)
         rec_s = rec[torch.sort(keys, stable=True).indices]
-    r = int(torch.randint(0, nb, (), generator=gen))
-    cids_b, ublk_b, iblk_b = (torch.roll(a, r, 0) for a in (cids, ublk, iblk))
-    rgen = rank_generator(gen, seed, epoch, rank)
-    seeds = torch.randint(0, 2**31 - 1, (nb,), generator=rgen).tolist()
-    blks = draw_window_blocks(rgen, (nb, nT, NW), num_items).to(dev)
-    ublk_d, iblk_d = ublk_b.to(dev), iblk_b.to(dev)
+    order = rotation(key, nb)
+    seeds = batch_seeds(rkey, nb)
+    blks = draw_window_blocks(rkey, (nb, nT, NW), num_items)
+    ublk_d, iblk_d = ublk[order], iblk[order]
     chunks = rec_s.view(-1, chunk, 2)
-    idx = cids_b.to(dev).long()
-    # the JAX pair [eta*2*alpha, eta*2*beta] (`rankfm_tpu/ops/fused.py:
-    # 1322-1326`)
-    dreg = tuple(float(np.float32(eta) * np.float32(2.0 * np.float32(r)))
-                 for r in (alpha, beta))
+    idx = cids[order].long()
+    # [eta, eta*2*alpha, eta*2*beta] in f32 (`rankfm_tpu/ops/fused.py:
+    # 1322-1326`), on the device: the kernel reads them there
+    eta = device_scalar(eta, torch.float32, dev)
+    scal = torch.stack([eta] + [
+        eta * float(np.float32(2.0) * np.float32(r)) for r in (alpha, beta)])
     k = sync_group_size(sync_every, nb)
     tables = [t for t in (tab_u, tab_i, tab_uf, tab_if) if t is not None]
     ll = torch.zeros((), dtype=torch.float32, device=dev)
@@ -1077,8 +1120,8 @@ def dp_fused_epoch(tab_u, tab_i, packed, layout, eta, alpha, seed, epoch, *,
             snap = [t.clone() for t in tables]
         ll = ll + batch_fn(
             tab_u, tab_i, chunks[idx[b]].reshape(-1, 2), packed, blks[b],
-            ublk_d[b], iblk_d[b], seeds[b], float(np.float32(eta)),
-            dreg, factors=factors, max_samples=max_samples,
+            ublk_d[b], iblk_d[b], seeds[b], scal[0], scal[1:],
+            factors=factors, max_samples=max_samples,
             ub_rows=UB, num_items=num_items, x_uf=x_uf, x_if=x_if,
             tab_uf=tab_uf, tab_if=tab_if)
         if n_dev > 1 and b % k == k - 1:

@@ -9,7 +9,7 @@ number of rounds, and candidates still in the history afterwards are flagged
 invalid.
 
 The samplers take their random candidates as one int32 tensor argument
-``draws [R, B, M]`` (`draw_candidates` makes it from a generator), so tests
+``draws [R, B, M]`` (`draw_candidates` makes it from a key), so tests
 can hand them the JAX package's own draws. Retrieval with
 ``filter_previous=True`` also reads the bitmap.
 """
@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from rankfm_tpu_torch.ops import _philox
 
 
 def build_bitmap_words(offsets, flat_items, num_users, num_items):
@@ -72,11 +74,12 @@ def bitmap_member(bitmap_words, u, j):
     return _rows_member(bitmap_words[u.long()], j)
 
 
-def draw_candidates(gen, n_draws, batch, max_samples, num_items):
-    """``n_draws`` uniform candidate sets ``[n_draws, B, M]`` int32 on the
-    generator's device."""
-    return torch.randint(0, num_items, (n_draws, batch, max_samples),
-                         generator=gen, device=gen.device, dtype=torch.int32)
+def draw_candidates(key, n_draws, batch, max_samples, num_items):
+    """``n_draws`` uniform candidate sets ``[n_draws, B, M]`` int32 drawn
+    under ``key`` (a batch's key, `_philox.fold`), on the key's device."""
+    x = _philox.bits(key, _philox.STREAM_STEP, n_draws * batch * max_samples)
+    return _philox.below(x, num_items).to(torch.int32).reshape(
+        n_draws, batch, max_samples)
 
 
 def sample_negatives_bitmap(u, bitmap_words, num_items, max_samples, draws):

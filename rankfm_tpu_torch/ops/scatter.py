@@ -103,25 +103,66 @@ def update_work(B2, F, n_live, n_rows, with_bias):
 
 def decay_c(eta, reg):
     """The per-touch decay factor ``max(1 - eta*2*reg, 1e-8)`` in f32, as
-    the JAX package computes it from f32 scalars."""
+    the JAX package computes it from f32 scalars; a 0-dim tensor when
+    ``eta`` is one."""
+    if isinstance(eta, torch.Tensor):
+        return torch.clamp(1.0 - eta * 2.0 * float(np.float32(reg)),
+                           min=1e-8)
     c = np.float32(1.0) - np.float32(eta) * np.float32(2.0) * np.float32(reg)
     return float(np.maximum(c, np.float32(1e-8)))
 
 
+def device_scalar(x, dtype, dev):
+    """``x`` (a number or a tensor) as a tensor of ``dtype`` on ``dev``: a
+    tensor already there is passed as it is (a 0-dim view of a larger one
+    too: a kernel reads it through its address). An int is cut to its low
+    32 bits for int32. Making one from a number on the card is a copy from
+    the host: an epoch makes its scalars once, or reads them from the
+    buffers its CUDA graph was captured with."""
+    if isinstance(x, torch.Tensor):
+        return x if x.dtype == dtype and x.device == dev else x.to(dev, dtype)
+    if dtype == torch.int32:
+        x = (int(x) + 2**31) % 2**32 - 2**31
+    return torch.tensor(x, dtype=dtype, device=dev)
+
+
+def device_scalars(dev, *xs):
+    """The f32 values ``xs`` as consecutive words in device memory, for a
+    kernel that reads them through one pointer: ``xs[0]`` itself when the
+    ``xs`` are consecutive 0-dim f32 views of one tensor on ``dev`` (what
+    an epoch hands over: nothing to launch), else a new tensor (from
+    numbers: one copy from the host)."""
+    if not any(isinstance(x, torch.Tensor) for x in xs):
+        return torch.tensor([float(x) for x in xs], dtype=torch.float32,
+                            device=dev)
+    ts = [device_scalar(x, torch.float32, dev) for x in xs]
+    base = ts[0].data_ptr()
+    if all(t.dim() == 0 and t.data_ptr() == base + 4 * k
+           for k, t in enumerate(ts)):
+        return ts[0]
+    return torch.stack(ts)
+
+
 def decay_rows(wt, grad, counts, eta, c):
     """``ck * wt + eta * f * grad`` with ``counts`` broadcast over trailing
-    dims (`rankfm_tpu.ops.training._decay_apply` given its ``c``). The
-    scalars are f32 values computed on the host: a tensor made from a
-    Python scalar on the card is a pageable copy that waits for the
-    stream."""
+    dims (`rankfm_tpu.ops.training._decay_apply` given its ``c``). ``eta``
+    and ``c`` are f32 numbers, or 0-dim f32 tensors on the device (an
+    epoch's learning rate lives there, so that a CUDA graph can replay the
+    epoch at any rate)."""
     if wt.dim() > counts.dim():
         counts = counts[..., None]
-    c32 = np.float32(c)
-    ck = torch.exp(counts * float(np.log(c32)))
-    denom = counts * float(np.float32(1.0) - c32)
+    if isinstance(c, torch.Tensor):
+        ck = torch.exp(counts * torch.log(c))
+        denom = counts * (1.0 - c)
+    else:
+        c32 = np.float32(c)
+        ck = torch.exp(counts * float(np.log(c32)))
+        denom = counts * float(np.float32(1.0) - c32)
     f = torch.where(denom > 1e-12, (1.0 - ck) / torch.clamp(denom, min=1e-12),
                     1.0)
-    return ck * wt + float(np.float32(eta)) * f * grad
+    if not isinstance(eta, torch.Tensor):
+        eta = float(np.float32(eta))
+    return ck * wt + eta * f * grad
 
 
 def table_update_reference(tab, bias, idx, upd, eta, c):
@@ -141,9 +182,11 @@ def table_update_reference(tab, bias, idx, upd, eta, c):
 
 def apply_table_update(tab, bias, idx, upd, eta, c):
     """``tab [N, F]`` f32, ``bias [N]`` f32 or None, ``idx [B2]`` int32,
-    ``upd [B2, F+2]`` f32, ``eta`` and ``c`` floats. Updates ``tab`` and
-    ``bias`` in place and returns them. CPU tensors take the plain version,
-    CUDA tensors the kernel of `_regime`; any other device raises."""
+    ``upd [B2, F+2]`` f32, ``eta`` and ``c`` floats or 0-dim f32 tensors
+    (on the card the kernel reads them from device memory). Updates ``tab``
+    and ``bias`` in place and returns them. CPU tensors take the plain
+    version, CUDA tensors the kernel of `_regime`; any other device
+    raises."""
     dev = tab.device
     if dev.type == "cpu":
         return table_update_reference(tab, bias, idx, upd, eta, c)
@@ -262,10 +305,10 @@ def _launch(kind, tab, bias, idx, upd, eta, c):
     scr = scratch(dev, stream, N, kind, F, B2).data_ptr()
     # 'sorted': claim, then acc; 'dense': acc
     parts = ((scr + 8 * B2 * (F + 3), scr) if kind == "sorted" else (scr,))
+    scal = device_scalars(dev, eta, c)
     err = _fn(kind)(
         tab.data_ptr(), None if bias is None else bias.data_ptr(), N, F,
-        idx.data_ptr(), upd.data_ptr(), B2, *parts, float(eta),
-        float(c), stream)
+        idx.data_ptr(), upd.data_ptr(), B2, *parts, scal.data_ptr(), stream)
     if err:
         from rankfm_tpu_torch.ops import _build
         raise RuntimeError(

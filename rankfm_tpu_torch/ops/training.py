@@ -17,11 +17,14 @@ per batch (`_apply_pair_updates`): the item and user tables through
 CUDA tensors, the plain version on CPU tensors), the feature tables through
 `_decay_apply`. The item and user tables are updated in place.
 
-A step is a `TrainStep`: ``draw(gen, B)`` makes the batch's random draws on
-the generator's device, and ``apply(w, x_uf, x_if, hist, u, i, sw, valid,
-eta, alpha, beta, draws)`` is the JAX step with ``draws`` in place of its
-PRNG key, so tests can hand it the JAX package's own draws. The port scores
-in f32 where the JAX steps cast the scoring operands to bf16.
+A step is a `TrainStep`: ``draw(key, B)`` makes the batch's random draws
+under the batch's key (`_philox.fold` of the epoch's key with the batch
+index, the JAX package's ``fold_in(ksamp, t)``) on the key's device, and
+``apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta, draws)`` is
+the JAX step with ``draws`` in place of its PRNG key, so tests can hand it
+the JAX package's own draws. ``eta`` may be a 0-dim tensor on the device
+(`epoch_body`). The port scores in f32 where the JAX steps cast the scoring
+operands to bf16.
 """
 
 from __future__ import annotations
@@ -31,11 +34,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from rankfm_tpu_torch.ops import _philox
 from rankfm_tpu_torch.ops import fused as fused_mod
 from rankfm_tpu_torch.ops.negatives import (
     bitmap_member, csr_member, draw_candidates, sample_negatives,
     sample_negatives_bitmap)
-from rankfm_tpu_torch.ops.scatter import apply_table_update, decay_c, decay_rows
+from rankfm_tpu_torch.ops.scatter import (apply_table_update, decay_c,
+                                          decay_rows, device_scalar)
 
 MARGIN = 1.0
 # the JAX steps draw their window uniforms from [U01_MIN, 1)
@@ -43,7 +48,7 @@ U01_MIN = 1e-7
 
 
 class TrainStep(NamedTuple):
-    draw: Callable    # draw(gen, B) -> the batch's random draws
+    draw: Callable    # draw(key, B) -> the batch's random draws
     apply: Callable   # apply(w, x_uf, x_if, hist, u, i, sw, valid, eta,
     #                         alpha, beta, draws) -> (w, ll)
 
@@ -55,10 +60,9 @@ def _decay_apply(wt, grad, counts, eta, reg):
     return decay_rows(wt, grad, counts, eta, decay_c(eta, reg))
 
 
-def _uniform(gen, shape):
-    """f32 uniforms in [U01_MIN, 1) on the generator's device."""
-    x = torch.rand(shape, generator=gen, device=gen.device)
-    return x * (1.0 - U01_MIN) + U01_MIN
+def _uniform(x, shape):
+    """f32 uniforms in [U01_MIN, 1) of ``shape`` from 32-bit draws."""
+    return _philox.to_unit(x).reshape(shape) * (1.0 - U01_MIN) + U01_MIN
 
 
 def window_warp_select(pw, nonmem, u01, r1, M):
@@ -175,6 +179,9 @@ def _apply_pair_updates(w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
     new_w = {k: _decay_apply(w[k], g, cnt, eta, beta)
              for k, (g, cnt) in grads.items()}
     c_a = decay_c(eta, alpha)
+    if isinstance(eta, torch.Tensor):
+        # one buffer [eta, c] that both table updates read
+        eta, c_a = torch.stack([eta, c_a])
     new_w["v_i"], new_w["w_i"] = apply_table_update(
         w["v_i"], w["w_i"], idx_i2, upd_i2, eta, c_a)
     new_w["v_u"], _ = apply_table_update(
@@ -286,8 +293,8 @@ def make_train_step(num_items, max_samples, x_uf_any, x_if_any,
     post_reject = post_reject and M > 1
     n_draws = candidate_draw_count(sampler, sample_rounds, post_reject)
 
-    def draw(gen, B):
-        return draw_candidates(gen, n_draws, B, M, num_items)
+    def draw(key, B):
+        return draw_candidates(key, n_draws, B, M, num_items)
 
     def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta, draws):
         B = u.shape[0]
@@ -385,11 +392,17 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
     I_pad = fused_mod.item_pad(num_items)
     LW = BLK // fused_mod.BITS_PER_LANE
 
-    def draw(gen, B):
+    def draw(key, B):
+        # the window blocks of `fused.draw_window_blocks` and the step
+        # stream's uniforms, in one pass of Philox
         G = pick_window_groups(B)
-        blkg = fused_mod.draw_window_blocks(gen, (G,), num_items)
-        return (blkg, _uniform(gen, (G, B // G, BLK)),
-                _uniform(gen, (G, B // G)))
+        x_blk, x_u01, x_r1 = _philox.bits_of(key, [
+            (_philox.STREAM_BLOCKS, G, 0),
+            (_philox.STREAM_STEP, B * BLK, 0),
+            (_philox.STREAM_STEP, B, 1)])
+        return (fused_mod.window_blocks(x_blk, (G,), num_items),
+                _uniform(x_u01, (G, B // G, BLK)),
+                _uniform(x_r1, (G, B // G)))
 
     def apply(w, x_uf, x_if, packed_hist, u, i, sw, valid, eta, alpha, beta,
               draws):
@@ -448,36 +461,47 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
     return TrainStep(draw, apply)
 
 
-def device_generator(seed, epoch, device):
-    """The generator of one XLA epoch's draws on ``device``, seeded from the
-    epoch's CPU generator (`fused.epoch_generator`)."""
-    s = int(torch.randint(0, 2**62, (), generator=fused_mod.epoch_generator(
-        seed, epoch)))
-    return torch.Generator(device=device).manual_seed(s)
+def epoch_draws(seed, epoch, n_pad, nb, device, rank=0):
+    """``(perm [n_pad], batch keys [nb])`` of one XLA epoch, on
+    ``device``: the permutation of the padded rows, a stable argsort of
+    32-bit draws under the epoch's key, and each batch's key (`_philox.fold`
+    of this rank's key with the batch index; rank 0's is the epoch's own).
+    ``epoch`` may be a 0-dim tensor on the device."""
+    key = _philox.epoch_key(seed, epoch, device=device)
+    perm = torch.sort(_philox.bits(key, _philox.STREAM_PERM, n_pad),
+                      stable=True).indices
+    rkey = key if rank == 0 else _philox.epoch_key(seed, epoch, rank,
+                                                   device=device)
+    t = torch.arange(nb, dtype=torch.int64, device=device)
+    return perm, _philox.fold(rkey, t)
 
 
 def epoch_body(step, batch_size):
     """One epoch of an XLA step (`rankfm_tpu/ops/training.py:556-591`): one
     permutation of the padded rows, the validity mask of the pad rows
-    (index ``>= n_real``), then the batches in order. No host sync.
+    (index ``>= n_real``), then the batches in order, each with the draws
+    of its own key (`epoch_draws`). Nothing is read back on the host, and
+    ``epoch`` and ``eta`` may be 0-dim tensors on the device, so a CUDA
+    graph can capture the epoch (`ops.graph`).
 
     Returns ``epoch_fn(w, x_uf, x_if, hist, u, i, sw, n_real, eta, alpha,
     beta, seed, epoch) -> (w, ll)``; ``u``/``i`` are int64 and ``sw`` f32
-    padded columns on the device."""
+    padded columns on the device. The item and user tables of ``w`` are
+    updated in place; the returned dict holds new feature tables."""
 
     def epoch_fn(w, x_uf, x_if, hist, u, i, sw, n_real, eta, alpha, beta,
                  seed, epoch):
         n_pad = u.shape[0]
         nb = n_pad // batch_size
-        gen = device_generator(seed, epoch, u.device)
-        perm = torch.randperm(n_pad, generator=gen, device=u.device)
+        perm, keys = epoch_draws(seed, epoch, n_pad, nb, u.device)
+        eta = device_scalar(eta, torch.float32, u.device)
         valid = (perm < n_real).reshape(nb, batch_size)
         ub, ib, swb = (a[perm].reshape(nb, batch_size) for a in (u, i, sw))
         ll = torch.zeros((), dtype=torch.float32, device=u.device)
         for t in range(nb):
             w, ll_t = step.apply(w, x_uf, x_if, hist, ub[t], ib[t], swb[t],
                                  valid[t], eta, alpha, beta,
-                                 step.draw(gen, batch_size))
+                                 step.draw(keys[t], batch_size))
             ll = ll + ll_t
         return w, ll
 

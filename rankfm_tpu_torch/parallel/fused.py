@@ -10,9 +10,9 @@ with ONE table-sized delta all-reduce per sync group
 Layout contract: the fit-time `make_records_grouped` layout is built once
 for the GLOBAL batch size; `split_layout_for_mesh` deals each batch's
 chunks to the ranks device-major; every rank re-shuffles the same record
-array each epoch from the shared epoch generator (no communication), or
-takes the same pre-shuffled layout (``pre_shuffled``), and each rank draws
-its own negatives.
+array each epoch under the shared epoch key (no communication), or takes
+the same pre-shuffled layout (``pre_shuffled``), and each rank draws its
+own negatives under its own key (`fused.epoch_key` with its rank).
 """
 
 from __future__ import annotations

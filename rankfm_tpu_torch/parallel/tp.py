@@ -12,7 +12,7 @@ too large to replicate per device.
   row contributes zeros): one for the batch's user rows, one for the item
   rows (positive and candidates, or positive and windows);
 * **selection** runs identically on every ``model`` replica (the same
-  inputs after the exchange, the same draws: the generator is keyed by the
+  inputs after the exchange, the same draws: their keys are those of the
   ``data`` rank), with the single-device steps' code
   (`ops.training.warp_select`, `window_warp_select`); the window step
   splits its groups over ``model`` when their count allows and gathers the
@@ -248,8 +248,8 @@ def make_tp_train_step(mesh, num_items, max_samples, x_uf_any, x_if_any,
     n_draws = training.candidate_draw_count(sampler, sample_rounds,
                                             post_reject)
 
-    def draw(gen, B):
-        return draw_candidates(gen, n_draws, B, M, num_items)
+    def draw(key, B):
+        return draw_candidates(key, n_draws, B, M, num_items)
 
     def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta, draws):
         B = u.shape[0]
@@ -399,9 +399,9 @@ def tp_epoch_fn(mesh, num_items, max_samples, x_uf_any, x_if_any, batch_size,
     pad_packed_hist(...)}`` (window step).
 
     The permutation is shared by every rank; each ``data`` rank takes its
-    contiguous ``1/data`` of every global batch and draws from the
-    generator of its ``data`` rank (`fused.rank_generator`: a ``data=1``
-    mesh draws what one device draws). Returns the log-likelihood summed
+    contiguous ``1/data`` of every global batch and draws under the batch
+    keys of its ``data`` rank (`training.epoch_draws`: a ``data=1`` mesh
+    draws what one device draws). Returns the log-likelihood summed
     over ``data``, NaN on every rank when any rank's shard holds a
     non-finite value."""
     D = mesh.shape["data"]
@@ -420,17 +420,16 @@ def tp_epoch_fn(mesh, num_items, max_samples, x_uf_any, x_if_any, batch_size,
                  seed, epoch):
         n_pad = u.shape[0]
         nb = n_pad // batch_size
-        gen = training.device_generator(seed, epoch, u.device)
-        perm = torch.randperm(n_pad, generator=gen, device=u.device)
+        perm, keys = training.epoch_draws(seed, epoch, n_pad, nb, u.device,
+                                          mesh.data_rank)
         valid = (perm < n_real).reshape(nb, batch_size)[:, cols]
         ub, ib, swb = (a[perm].reshape(nb, batch_size)[:, cols]
                        for a in (u, i, sw))
-        rgen = fused_mod.rank_generator(gen, seed, epoch, mesh.data_rank)
         ll = torch.zeros((), dtype=torch.float32, device=u.device)
         for t in range(nb):
             w, ll_t = step.apply(w, x_uf, x_if, hist, ub[t], ib[t], swb[t],
                                  valid[t], eta, alpha, beta,
-                                 step.draw(rgen, bd))
+                                 step.draw(keys[t], bd))
             ll = ll + ll_t
         # the ll of one model rank per data rank, and every shard's
         # non-finite count: one all-reduce over every rank

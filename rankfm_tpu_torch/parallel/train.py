@@ -45,11 +45,11 @@ def dp_epoch_body(step, batch_size, mesh, sync_every=1):
     (`_cached_dp_epoch`, `rankfm_tpu/parallel/train.py:148-247`), with
     `training.epoch_body`'s signature.
 
-    The permutation comes from the epoch's device generator and so is the
-    same on every rank; each rank takes its contiguous ``1/n_dev`` of every
-    global batch and draws its candidates from its own generator
-    (`fused.rank_generator`: rank 0 continues the shared one, so a one-rank
-    mesh is `training.epoch_body` bit for bit). After each group of
+    The permutation is drawn under the epoch's key and so is the same on
+    every rank; each rank takes its contiguous ``1/n_dev`` of every global
+    batch and draws its candidates under its own batch keys
+    (`training.epoch_draws` with its rank: rank 0's are the epoch's own, so
+    a one-rank mesh is `training.epoch_body` bit for bit). After each group of
     `fused.sync_group_size` batches, ONE all-reduce sums the ranks' deltas
     to all six weight tensors; the epoch log-likelihood is summed at the
     end."""
@@ -63,19 +63,18 @@ def dp_epoch_body(step, batch_size, mesh, sync_every=1):
         n_pad = u.shape[0]
         nb = n_pad // batch_size
         k = fused_mod.sync_group_size(sync_every, nb)
-        gen = training.device_generator(seed, epoch, u.device)
-        perm = torch.randperm(n_pad, generator=gen, device=u.device)
+        perm, keys = training.epoch_draws(seed, epoch, n_pad, nb, u.device,
+                                          rank)
         valid = (perm < n_real).reshape(nb, batch_size)[:, cols]
         ub, ib, swb = (a[perm].reshape(nb, batch_size)[:, cols]
                        for a in (u, i, sw))
-        rgen = fused_mod.rank_generator(gen, seed, epoch, rank)
         ll = torch.zeros((), dtype=torch.float32, device=u.device)
         for t in range(nb):
             if n_dev > 1 and t % k == 0:
                 snap = {name: v.clone() for name, v in w.items()}
             w, ll_t = step.apply(w, x_uf, x_if, hist, ub[t], ib[t], swb[t],
                                  valid[t], eta, alpha, beta,
-                                 step.draw(rgen, bd))
+                                 step.draw(keys[t], bd))
             ll = ll + ll_t
             if n_dev > 1 and t % k == k - 1:
                 mesh.merge_deltas([w[n] for n in snap],
@@ -91,7 +90,7 @@ def make_sharded_train_step(mesh, num_items, max_samples, x_uf_any,
                             x_if_any, sample_rounds=8, sampler="bsearch"):
     """One batch of the candidate step over row-sharded tables
     (`rankfm_tpu/parallel/train.py:37-66`), with the single-device step's
-    signature and semantics (`training.make_train_step`): ``draw(gen, B)``
+    signature and semantics (`training.make_train_step`): ``draw(key, B)``
     and ``apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta,
     draws) -> (w, ll)`` on the WHOLE batch, every rank calling it with the
     same arguments. ``w`` / ``x_uf`` / ``x_if`` are `place_weights`'s

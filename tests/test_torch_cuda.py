@@ -680,10 +680,11 @@ def _latent_log(rng, n_users=600, n_items=2500, per_user=50, sharp=2.0):
 @pytest.mark.cuda
 def test_gpu_mixed_fit_matches_cpu_mixed_fit(cuda):
     """The mixed schedule (9 fused epochs, then 1 candidate epoch through
-    both table-update kernels) on the card and on the CPU: the candidate
-    epoch draws from the device's generator, so the two fits are held to
-    each other within the oracle band (+-0.05 hit rate and DCG, +-0.03
-    precision and recall)."""
+    both table-update kernels) on the card and on the CPU: both draw the
+    same bits (`_philox`), but the candidate step's full-catalog scoring
+    sums in another order on each, so the two fits are held to each other
+    within the oracle band (+-0.05 hit rate and DCG, +-0.03 precision and
+    recall)."""
     from rankfm_tpu_torch import RankFM, evaluation
 
     train, test = _latent_log(np.random.default_rng(1492))
@@ -872,3 +873,250 @@ def test_build_is_keyed_by_content(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.build() != first
     assert calls.read_text().count("x") == 2 * n_lib
+
+
+# ---------------------------------------------------------------------------
+# the epoch on the card: device draws, device-memory scalars, CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _graph_case(features=False):
+    """A small log, fitted for one epoch on the card: the model whose
+    engines the graph tests run."""
+    from rankfm_tpu_torch import RankFM
+
+    rng = np.random.default_rng(5)
+    users = np.repeat(np.arange(500), 24)
+    train = np.stack([users, rng.integers(0, 2300, len(users))], 1)
+    kw = {}
+    if features:
+        import pandas as pd
+
+        for side, n, k in (("user", 500, 4), ("item", 2300, 3)):
+            ids = np.unique(train[:, int(side == "item")])
+            df = pd.DataFrame(np.eye(k, dtype=np.float32)[
+                rng.integers(0, k, len(ids))],
+                columns=[f"{side}{j}" for j in range(k)])
+            df.insert(0, f"{side}_id", ids)
+            kw[f"{side}_features"] = df
+    return train, kw
+
+
+def _engine_epoch(model, kind):
+    """``(fn, tables)`` of one epoch of the fitted model's fused engine
+    (main layout) or of its candidate step, as `RankFM` runs them."""
+    from rankfm_tpu_torch.ops import training
+
+    plan = model.last_fit_plan_
+    U, I, F = len(model.user_idx), len(model.item_idx), model.factors
+    dev = model.device
+    w = model._w
+    if kind == "fused":
+        layout = tuple(torch.from_numpy(a).to(dev) for a in
+                       fused.deal_by_fraction(fused.make_records_grouped(
+                           model.interactions[:, 0], model.interactions[:, 1],
+                           model.sample_weight, U, I, plan.batch_size,
+                           plan.chunk, ub=plan.user_block), plan.chunk, U, I,
+                           ub=plan.user_block))
+        U_pad = fused.user_pad(U, plan.user_block)
+        tu, ti = fused.extend_tables(w["w_i"], w["v_u"], w["v_i"], U_pad,
+                                     fused.item_pad(I))
+        tuf, tif = fused.extend_feature_tables(w["v_uf"], w["w_if"],
+                                               w["v_if"])
+        featured = bool(model.x_uf.any())
+        tables = dict(tab_u=tu, tab_i=ti, tab_uf=tuf if featured else None,
+                      tab_if=tif if featured else None)
+        feats = {}
+        if featured:
+            feats = dict(
+                x_uf=fused.pad_feature_cols(model._x_uf_dev, U_pad),
+                x_if=fused.pad_feature_cols(model._x_if_dev,
+                                            fused.item_pad(I)))
+        packed = model._ensure_packed_hist()
+
+        def fn(t, epoch, eta):
+            return fused.fused_epoch(
+                t["tab_u"], t["tab_i"], packed, layout, eta, model.alpha,
+                model.seed, epoch, num_users=U, num_items=I, factors=F,
+                max_samples=plan.max_samples, batch_size=plan.batch_size,
+                chunk=plan.chunk, ub=plan.user_block, tab_uf=t["tab_uf"],
+                tab_if=t["tab_if"], beta=model.beta, **feats)
+
+        return fn, tables
+    n = len(model.interactions)
+    bs = plan.xla_batch
+    n_pad = -(-n // bs) * bs
+    cols = [torch.zeros(n_pad, dtype=dt, device=dev)
+            for dt in (torch.int64, torch.int64, torch.float32)]
+    cols[0][:n] = torch.from_numpy(model.interactions[:, 0].astype(np.int64))
+    cols[1][:n] = torch.from_numpy(model.interactions[:, 1].astype(np.int64))
+    cols[2][:n] = torch.from_numpy(model.sample_weight)
+    step = training.make_train_step(I, plan.max_samples, False, False,
+                                    sample_rounds=plan.rounds)
+    hist = {"offsets": model._offsets_dev, "flat": model._flat_items_dev}
+    body = training.epoch_body(step, bs)
+
+    def fn(t, epoch, eta):
+        t_new, ll = body(t, model._x_uf_dev, model._x_if_dev, hist, *cols, n,
+                         eta, model.alpha, model.beta, model.seed, epoch)
+        for k, v in t_new.items():
+            if v is not t[k]:
+                t[k].copy_(v)
+        return ll
+
+    return fn, {k: v.clone() for k, v in w.items()}
+
+
+def _same_bytes(a, b):
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,features", [("fused", False),
+                                           ("fused", True),
+                                           ("candidate", False)])
+def test_graph_epoch_equals_eager_epoch(cuda, kind, features):
+    """Three epochs through one captured graph and three eager epochs from
+    copies of the same tables: equal to the byte, tables and ll; a replay
+    counts the launches its capture recorded."""
+    from rankfm_tpu_torch import RankFM
+    from rankfm_tpu_torch.ops import graph
+
+    train, kw = _graph_case(features)
+    m = RankFM(factors=8, loss="warp", max_samples=10, beta=0.1,
+               use_fused=kind == "fused", device="cuda").fit(
+        train, epochs=1, **kw)
+    fn, tables = _engine_epoch(m, "fused" if kind == "fused" else kind)
+    te = {k: None if v is None else v.clone() for k, v in tables.items()}
+    tg = {k: None if v is None else v.clone() for k, v in tables.items()}
+    runner = graph.EpochGraph(fn, tg, cuda, kind)
+    for epoch, eta in ((3, 0.1), (4, 0.07), (5, 0.05)):
+        before = (Counter(fused.LAUNCHES), Counter(scatter.LAUNCHES))
+        ll_g = runner(epoch, eta)
+        if epoch > 3:      # (the first call also ran the warm-up)
+            assert (Counter(fused.LAUNCHES) - before[0], Counter(
+                scatter.LAUNCHES) - before[1]) == runner.launches
+        ll_e = fn(te, epoch, eta)
+        torch.cuda.synchronize()
+        assert _same_bytes(ll_g, ll_e)
+        for k in te:
+            if te[k] is not None:
+                assert _same_bytes(te[k], tg[k]), (epoch, k)
+    assert sum(runner.launches[0 if kind == "fused" else 1].values()) > 0
+    assert runner.stats["capture_s"] > 0 and runner.stats["nodes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epoch,rank", [(0, 0), (2, 1), (7, 3)])
+def test_card_draws_equal_cpu_draws(cuda, epoch, rank):
+    from rankfm_tpu_torch.ops import training
+
+    def draws(dev):
+        key = fused.epoch_key(1492, epoch, rank, device=dev)
+        perm, keys = training.epoch_draws(1492, epoch, 40_960, 5, dev, rank)
+        return [key, fused.shuffle_bits(key, 100_003),
+                fused.rotation(key, 23), fused.batch_seeds(key, 23),
+                fused.draw_window_blocks(key, (23, 16, 4), 33_362), perm,
+                keys, training.make_train_step(33_362, 50, False, False).draw(
+                    keys[1], 512),
+                *training.make_window_train_step(3_706, 20, False,
+                                                 False).draw(keys[2], 1024),
+                fused.layout_key(1492, epoch, device=dev)]
+
+    for got, want in zip(draws(cuda), draws(torch.device("cpu"))):
+        assert got.device.type == "cuda" and _same_bytes(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_uf,n_if", [(0, 0), (3, 4)])
+def test_kernel_scalars_from_device_memory(cuda, n_uf, n_if):
+    """B1 given its seed and scalars as views into device buffers (what an
+    epoch hands it) equals B1 given numbers, to the byte, and leaves its
+    persistent scratch as it found it; called again it gives the same."""
+    rng = np.random.default_rng(9)
+    case, args, kw, _ = _case(cuda, 4, rng, n_uf=n_uf, n_if=n_if)
+    tabs, feats = case if n_uf or n_if else (case, {})
+    seed, eta, dreg = args[5:]
+    seeds = torch.tensor([5, seed, 9], dtype=torch.int32, device=cuda)
+    scal = torch.tensor([0.3, eta, *dreg], dtype=torch.float32, device=cuda)
+    outs = []
+    for by_value in (True, False, True):
+        t = [x.clone() for x in tabs]
+        f = {k: v.clone() if k.startswith("tab") else v
+             for k, v in feats.items()}
+        s = args[5:] if by_value else (seeds[1], scal[1], scal[2:])
+        ll = fused.fused_batch(*t, *args[:5], *s, max_samples=20, **kw, **f)
+        torch.cuda.synchronize()
+        outs.append((t, f, ll))
+    for t, f, ll in outs[1:]:
+        assert _same_bytes(ll, outs[0][2])
+        assert all(_same_bytes(a, b) for a, b in zip(t, outs[0][0]))
+        assert all(_same_bytes(f[k], outs[0][1][k]) for k in f)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    nT, NW = args[2].shape
+    BLK = fused.block_size(kw["num_items"])
+    D = kw["factors"] + 2
+    scr = fused.scratch(cuda, stream, nT, args[0].shape[0] // nT,
+                        kw["ub_rows"], BLK, NW, D, n_uf, n_if, n_uf > 0,
+                        n_if > 0)
+    assert not scr["acc"].any() and not scr["cnt"].any()
+    if n_uf or n_if:
+        nrep = (kw["ub_rows"] + (1 + NW) * BLK) * D
+        assert not scr["facc"][nrep:nrep + n_uf + n_if].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sorted", "dense"])
+def test_table_update_scalars_from_device_memory(cuda, kernel):
+    tab, bias, idx, upd = _table_case(cuda, 33_362, 16_384, 50, "uniform",
+                                      True)
+    eta, c = 0.1, scatter.decay_c(0.1, 0.01)
+    launch = getattr(scatter, f"table_update_{kernel}")
+    a = [tab.clone(), bias.clone()]
+    launch(*a, idx, upd, eta, c)
+    scal = torch.tensor([1.0, eta, c], dtype=torch.float32, device=cuda)
+    b = [tab.clone(), bias.clone()]
+    launch(*b, idx, upd, scal[1], scal[2])
+    torch.cuda.synchronize()
+    assert _same_bytes(a[0], b[0]) and _same_bytes(a[1], b[1])
+
+
+CAPTURE_FAILS = """
+import sys, torch
+sys.path.insert(0, {root!r})
+from rankfm_tpu_torch.ops import graph
+t = {{"x": torch.ones(4, device="cuda")}}
+
+def fn(tables, epoch, eta):
+    tables["x"].mul_(2.0)
+    if float(tables["x"].sum()) > 0:       # a host read: not capturable
+        tables["x"].add_(eta)
+    return tables["x"].sum()
+
+run = graph.epoch_runner(fn, t, torch.device("cuda"))
+try:
+    run(0, 0.1)
+except graph.GraphCaptureError as e:
+    print("raised:", e)
+    sys.exit(3)
+print("no error")
+"""
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises(cuda):
+    """An epoch that reads a device value on the host cannot be captured:
+    the runner raises with the CUDA error, and runs nothing eagerly
+    instead (a process of its own: a failed capture leaves torch's CUDA
+    generator unusable in that process)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c",
+                          CAPTURE_FAILS.format(root=root)],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 3, out.stdout + out.stderr
+    assert "raised: capturing the epoch (epoch) as a CUDA graph failed" \
+        in out.stdout

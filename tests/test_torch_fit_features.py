@@ -97,7 +97,7 @@ def test_pre_shuffled_epoch_equals_sorting_epoch():
         torch.from_numpy(rng.normal(0, 0.1, (2500, 8)).astype(np.float32)),
         tfused.user_pad(3000), tfused.item_pad(2500))
     keys = tfused.shuffle_keys(group, tfused.shuffle_rnd_bits(3000, 2500),
-                               tfused.epoch_generator(7, 3))
+                               tfused.epoch_key(7, 3))
     rec_s = rec[torch.sort(keys, stable=True).indices]
     want = _epoch((rec, group, cids, ublk, iblk), False, tabs)
     got = _epoch((rec_s, group, cids, ublk, iblk), True, tabs)
@@ -113,18 +113,18 @@ def test_shuffle_layouts_cycle_across_fit_and_fit_partial(monkeypatch):
     built when first used and once per call; ``fit_partial`` continues the
     cycle. The epochs never sort."""
     built, rounds = [], []
-    layout_generator = tfused.layout_generator
+    layout_key = tfused.layout_key
     shuffle_keys = tfused.shuffle_keys
 
-    def spy_layout(seed, r):
+    def spy_layout(seed, r, device=None):
         built.append(r)
-        return layout_generator(seed, r)
+        return layout_key(seed, r, device=device)
 
     def spy_keys(*a):
         rounds.append(1)
         return shuffle_keys(*a)
 
-    monkeypatch.setattr(tfused, "layout_generator", spy_layout)
+    monkeypatch.setattr(tfused, "layout_key", spy_layout)
     monkeypatch.setattr(tfused, "shuffle_keys", spy_keys)
     rng = np.random.default_rng(2)
     users = np.repeat(np.arange(300), 20)

@@ -118,7 +118,7 @@ def test_segmented_shuffle_keeps_layout_invariants():
     NG = tfused.num_user_blocks(U) * (tfused.item_pad(I) // BLK)
     rnd_bits = 31 - int(NG + 1).bit_length()
     keys = tfused.shuffle_keys(torch.from_numpy(group), rnd_bits,
-                               tfused.epoch_generator(5, 0))
+                               tfused.epoch_key(5, 0))
     order = torch.sort(keys, stable=True).indices.numpy()
     shuffled = rec[order]
     assert not np.array_equal(shuffled, rec)        # it did shuffle

@@ -26,6 +26,8 @@ from rankfm_tpu.ops import fused as jfused
 from rankfm_tpu.ops import negatives as jneg
 from rankfm_tpu.ops import scatter as jscatter
 from rankfm_tpu.ops import training as jtraining
+from rankfm_tpu_torch.ops import _philox
+from rankfm_tpu_torch.ops import fused as tfused
 from rankfm_tpu_torch.ops import negatives as tneg
 from rankfm_tpu_torch.ops import scatter as tscatter
 from rankfm_tpu_torch.ops import training as ttraining
@@ -254,7 +256,8 @@ def _candidate_pair(case, I, sampler, post_reject, features, rounds=3,
               "bitmap": torch.from_numpy(case["bm"].view(np.int32))}
     draws = torch.from_numpy(_jax_candidate_draws(
         key, len(case["u"]), M, I, sampler, rounds, post_reject))
-    assert draws.shape == tstep.draw(torch.Generator(), len(case["u"])).shape
+    assert draws.shape == tstep.draw(tfused.epoch_key(0, 0),
+                                     len(case["u"])).shape
     return (_run_jax_step(jstep, case, hist_j, key),
             _run_port_step(tstep, case, hist_t, draws))
 
@@ -300,7 +303,7 @@ def test_window_step_matches_jax(features):
             kgeo, (G, B // G), minval=1e-7, maxval=1.0))))
     tstep = ttraining.make_window_train_step(I, M, features, features)
     assert [d.shape for d in draws] == [
-        d.shape for d in tstep.draw(torch.Generator(), B)]
+        d.shape for d in tstep.draw(tfused.epoch_key(0, 0), B)]
     got = _run_port_step(tstep, case, torch.from_numpy(case["packed"]), draws)
     names = ("w_i", "v_u", "v_i") + (("w_if", "v_uf", "v_if") if features
                                      else ())
@@ -341,8 +344,8 @@ def test_epoch_body_visits_every_row_once():
     rows invalid; the same (seed, epoch) replays the same epoch."""
     seen = []
 
-    def draw(gen, B):
-        return torch.rand(B, generator=gen, device=gen.device)
+    def draw(key, B):
+        return _philox.to_unit(_philox.bits(key, _philox.STREAM_STEP, B))
 
     def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta, draws):
         seen.append((u.clone(), valid.clone(), draws.clone()))

@@ -2,6 +2,16 @@
 with and without side features, against the C++ sequential oracle, inside
 its quality band (`torch_common`). The JAX package's own window-step fit
 of this config sits -0.04 hit rate and -0.046 DCG from the oracle.
+
+One fit's deltas are a draw: the port's window fits of this config sit
+about -0.03 from the oracle on average (hit rate and DCG), and a single
+model seed lands anywhere within about +-0.035 of that, with either
+stream of random draws the port has had (per-epoch CPU generators before
+the draws moved onto the device, counter-based Philox keys since), so a
+single seed falls outside the band at some seeds in both. The band is
+therefore held by the mean deltas over the three model seeds of the card's
+quality gate (`chip_smoke.py` phase 12), each fit against the oracle from
+its own initial weights.
 """
 
 import numpy as np
@@ -14,19 +24,44 @@ from parity_common import make_features, oracle_metrics
 from torch_common import (CFG, METRICS, assert_in_band,  # noqa: F401
                           data_and_oracle, one_torch_thread)
 
+SEEDS = (1492, 7, 23)
+
+
+def _mean_deltas_in_band(fit, train, test, want_1492, **features):
+    """Fit at each of `SEEDS` (``fit(seed)``) and hold the mean of the
+    five metrics against the mean of the oracle's from the same initial
+    weights (``want_1492``: the oracle at seed 1492, already computed)."""
+    got, want = [], []
+    for seed in SEEDS:
+        tm = fit(seed)
+        got.append(teval.compute(tm, test, metrics=METRICS, k=10))
+        want.append(want_1492 if seed == 1492 else oracle_metrics(
+            JaxRankFM(**CFG, seed=seed), train, test, epochs=10, **features))
+        print(f"seed {seed}: port - oracle",
+              {m: round(got[-1][m] - want[-1][m], 4) for m in METRICS})
+
+    def mean(rows):
+        return {m: float(np.mean([r[m] for r in rows])) for m in METRICS}
+
+    assert_in_band(mean(got), mean(want))
+
 
 def test_window_fit_quality_matches_sequential_oracle(data_and_oracle):
     """``use_fused=False`` at 3 window blocks: the window step at batch
     8,192, every epoch."""
     train, test, want = data_and_oracle
-    tm = TorchRankFM(**CFG, use_fused=False, device="cpu").fit(train,
-                                                              epochs=10)
-    plan = tm.last_fit_plan_
-    assert not plan.fused and plan.step_kind == "window"
-    assert plan.xla_batch == 8192 and plan.n_main == 10
-    lls = [r["log_likelihood"] for r in tm.training_log_]
-    assert len(lls) == 10 and np.isfinite(lls).all() and lls[-1] > lls[0]
-    assert_in_band(teval.compute(tm, test, metrics=METRICS, k=10), want)
+
+    def fit(seed):
+        tm = TorchRankFM(**CFG, seed=seed, use_fused=False,
+                         device="cpu").fit(train, epochs=10)
+        plan = tm.last_fit_plan_
+        assert not plan.fused and plan.step_kind == "window"
+        assert plan.xla_batch == 8192 and plan.n_main == 10
+        lls = [r["log_likelihood"] for r in tm.training_log_]
+        assert len(lls) == 10 and np.isfinite(lls).all() and lls[-1] > lls[0]
+        return tm
+
+    _mean_deltas_in_band(fit, train, test, want)
 
 
 def test_featured_window_fit_quality_matches_sequential_oracle(
@@ -36,11 +71,17 @@ def test_featured_window_fit_quality_matches_sequential_oracle(
     the same features."""
     train, test, _ = data_and_oracle
     uf, itf = make_features(np.random.default_rng(3), train)
-    tm = TorchRankFM(**CFG, use_fused=False, device="cpu").fit(
-        train, user_features=uf, item_features=itf, epochs=10)
-    assert tm.last_fit_plan_.step_kind == "window"
-    for k in ("w_if", "v_uf", "v_if"):
-        assert np.abs(tm._weights[k]).max() > 0
+
+    def fit(seed):
+        tm = TorchRankFM(**CFG, seed=seed, use_fused=False,
+                         device="cpu").fit(
+            train, user_features=uf, item_features=itf, epochs=10)
+        assert tm.last_fit_plan_.step_kind == "window"
+        for k in ("w_if", "v_uf", "v_if"):
+            assert np.abs(tm._weights[k]).max() > 0
+        return tm
+
     want = oracle_metrics(JaxRankFM(**CFG), train, test, epochs=10,
                           user_features=uf, item_features=itf)
-    assert_in_band(teval.compute(tm, test, metrics=METRICS, k=10), want)
+    _mean_deltas_in_band(fit, train, test, want, user_features=uf,
+                         item_features=itf)

@@ -252,14 +252,21 @@ def counting_batch_fn(chunk, num_users, num_items):
     return fn
 
 
+def _unit_draws(key, B):
+    """``B`` uniforms in [0, 1) under a batch's key."""
+    from rankfm_tpu_torch.ops import _philox
+
+    return _philox.to_unit(_philox.bits(key, _philox.STREAM_STEP, B))
+
+
 def counting_step():
     """Stand-in for an XLA `TrainStep`: one uniform per row drawn, then each
     valid row's visit added to column 0 of its user and item rows; the
     log-likelihood is the count of valid rows."""
     from rankfm_tpu_torch.ops.training import TrainStep
 
-    def draw(gen, B):
-        return torch.rand(B, generator=gen)
+    def draw(key, B):
+        return _unit_draws(key, B)
 
     def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta, draws):
         v = valid.to(torch.float32)
@@ -596,7 +603,7 @@ def fed_builder(build, feed, data_rank, used):
         step = build(*args, **kwargs)
         cur = {}
 
-        def draw(gen, B):
+        def draw(key, B):
             rows, draws = feed[used[0]][data_rank]
             used[0] += 1
             assert len(rows[0]) == B, (len(rows[0]), B)
@@ -668,8 +675,8 @@ def tp_visits(mesh, prob, bs, epochs):
     seen = []
 
     def build(*args, **kwargs):
-        def draw(gen, B):
-            return torch.rand(B, generator=gen)
+        def draw(key, B):
+            return _unit_draws(key, B)
 
         def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta,
                   draws):
@@ -1004,7 +1011,7 @@ def ring_fit_features(rank, world):
     u, i, sw = xla_columns(prob, B)
     valid = torch.ones(B, dtype=torch.bool)
     single = training.make_train_step(I, 4, True, True, 3, "bsearch")
-    draws = single.draw(torch.Generator().manual_seed(5), B)
+    draws = single.draw(fused.epoch_key(5, 0), B)
     w1, ll1 = single.apply({k: v.clone() for k, v in w.items()}, x_uf, x_if,
                            hist, u[:B], i[:B], sw[:B], valid, 0.1, 0.01,
                            0.1, draws)
