@@ -172,9 +172,11 @@ result line):
    step) eagerly and through its `ops.graph.EpochGraph` from copies of the
    same tables, four epochs each: every table and ll equal to the byte;
    prints both walls, both device busy shares, the graph's node count,
-   warm-up, capture and instantiate seconds and pool bytes. A replay
-   counts the launches its capture recorded; the fits of phases 5-9 must
-   each capture one graph per layout and replay one per epoch.
+   capture and instantiate seconds, pool bytes and the epochs from which
+   a layout's graph costs less than its eager epochs. A replay counts the
+   launches its capture recorded; the fits of phases 5-9 must each
+   capture one graph per layout and replay one per epoch, and phase 10's
+   ``fit_partial`` on the same frame must capture none.
 
 Each path runs with the launch counts set to 0 just before it and reads
 them just after (on each rank, on the mesh); the kernels' JSON adds the
@@ -186,9 +188,11 @@ of JAX.
 """
 
 import argparse
+import ctypes
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -230,6 +234,7 @@ UPDATE_TIME_KEYS = ("ms", "plain_ms", "device_ms", "enqueue_us",
                     "index_add_ms")
 UPDATE_KEYS = UPDATE_TIME_KEYS + ("bound_ms", "bound_by")
 UPDATE_PROFILE_CALLS = 41      # the table updates of one candidate epoch
+B1_PROFILE_CALLS = 10          # B1 calls traced to count a call's launches
 PROFILE_MARGIN_S = 0.005       # idle time inside a profiler window, each end
 FIT_TIMING_KEYS = ("ingest_s", "hist_pack_s", "records_s", "prep_s",
                    "epoch0_call_s", "dispatch_s", "block_s")
@@ -475,10 +480,12 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
         kw = dict(factors=F, max_samples=M, ub_rows=UB, num_items=I)
         tk = [t.clone() for t in tabs]
         fk = {k: v.clone() for k, v in feats.items()}
-        # the plain version on the CPU, where it sums in one order run to run
-        # (on the card its `index_add_`s take atomic order: two runs of it
-        # part by 1e-7, which one slot at the margin can carry to 1e-2 over
-        # a batch of 256 chunks)
+        # the plain version on the CPU: on the card it rounds otherwise, the
+        # same way run to run (three card runs agreed to 2.4e-7 and sat 0.025
+        # from the kernel, which agreed with the CPU's to 2.1e-6), and one
+        # slot at the selection's margin carries that over a batch of 256
+        # chunks; its matrix products and transcendentals are the card's
+        # own, the op is not isolated
         tr = [t.cpu() for t in tabs]
         fr = {k: v.cpu() for k, v in feats.items()}
         packed_h = packed.cpu()
@@ -533,9 +540,36 @@ def kernel_phase(torch, fused, train, dev, U, I, F, M, layouts, nw=1,
                                   if k in ft] + [ch, llr])
             check(all(torch.equal(a, b) for a, b in zip(*runs)),
                   f"B1 gave other bytes on a second run ({tag} chunk {chunk})")
-        ms = cuda_ms(torch, lambda: fused.fused_batch(
-            *tk, rec_b, packed, blk_b, ub_b, ib_b, seed, eta, dreg, **kw,
-            **fk), 5)
+        if other_tree:
+            seed_x, eta_x, dreg_x = seed, eta, dreg
+        else:
+            # as an epoch hands them over: the seed and [eta, dreg0, dreg1]
+            # in device memory, which the kernel reads through pointers
+            seed_x = torch.tensor(seed, dtype=torch.int32, device=dev)
+            scal = torch.tensor([eta, *dreg], dtype=torch.float32,
+                                device=dev)
+            eta_x, dreg_x = scal[0], (scal[1], scal[2])
+
+        def call():
+            fused.fused_batch(*tk, rec_b, packed, blk_b, ub_b, ib_b, seed_x,
+                              eta_x, dreg_x, **kw, **fk)
+
+        call()
+        ms = cuda_ms(torch, call, 5)
+        if not other_tree:
+            # a call runs B1 and the sum of its ll terms on the card and
+            # nothing else: no copy, no other kernel (over B1_PROFILE_CALLS
+            # calls; the trace drops some records of a long run, so the
+            # launches are the wrapper's own count)
+            n = B1_PROFILE_CALLS
+            n0 = sum(fused.LAUNCHES.values())
+            _, _, rows = profile_call(torch, lambda: [call() for _ in
+                                                      range(n)], top=None)
+            check(sum(fused.LAUNCHES.values()) - n0 == n
+                  and any("fused_batch_kernel" in k for k, _, _ in rows)
+                  and all("fused_batch_kernel" in k or "reduce_kernel" in k
+                          for k, _, _ in rows),
+                  f"{n} B1 calls ran {rows} on the card ({tag} chunk {chunk})")
         # the plain version's time: the last batch compared, on the card
         rec_b, blk_b, ub_b, ib_b, seed = batches[-1]
         plain_ms = cuda_ms(torch, lambda: fused.fused_batch_reference(
@@ -1232,10 +1266,9 @@ def instacart_path(torch, RankFM, evaluation, fused, scatter, training, data,
     check(counts[b1] > 0 and counts[other] == 0,
           f"{tag}: {b1} did not launch alone: {counts}")
     if tail_windows:
-        # 5 main epochs at 4 windows, the tail epoch at tail_windows, each
-        # layout's graph after one warm-up epoch on copies of the tables
-        nb = counts[b1] // 8
-        check(by_nw == {4: 6 * nb, tail_windows: 2 * nb},
+        # 5 main epochs at 4 windows, the tail epoch at tail_windows
+        nb = counts[b1] // 6
+        check(by_nw == {4: 5 * nb, tail_windows: nb},
               f"{tag}: B1 launches by window count {by_nw}")
         check(counts["table_update_sorted"] == 0
               and counts["table_update_dense"] == 0,
@@ -1466,7 +1499,9 @@ def host_half_path(torch, RankFM, evaluation, fused, scatter, train, test,
     cfg = dict(factors=20, loss="warp", max_samples=20,
                learning_schedule="invscaling", device="cuda")
     reset_launches(torch, fused, scatter)
+    g0 = graph_counts()
     model, wall_fit = timed(torch, lambda: RankFM(**cfg).fit(raw, epochs=2))
+    check_graph_runs(g0, 2, 2, "phase 10 fit")
     tm_fit = dict(model.last_fit_timing_)
     plan = model.last_fit_plan_
     check(plan.fused and plan.chunk_tail == 1, f"phase 10 plan {plan}")
@@ -1475,7 +1510,10 @@ def host_half_path(torch, RankFM, evaluation, fused, scatter, train, test,
           "the fit cached no record layouts")
     packed, cached = model._packed_hist, dict(model._rec_cache)
     offsets_dev = model._offsets_dev
+    g0 = graph_counts()
     _, wall_again = timed(torch, lambda: model.fit_partial(raw, epochs=2))
+    # the same frame: both layouts replay the graphs the fit captured
+    check_graph_runs(g0, 0, 2, "fit_partial on the same frame")
     tm_again = dict(model.last_fit_timing_)
     check(model._packed_hist is packed and model._offsets_dev is offsets_dev,
           "fit_partial on the same frame rebuilt the history")
@@ -1485,11 +1523,14 @@ def host_half_path(torch, RankFM, evaluation, fused, scatter, train, test,
     check(tuple(tm_again) == FIT_TIMING_KEYS, f"last_fit_timing_ {tm_again}")
     print(f"fit(epochs=2), {len(raw)} rows: wall {wall_fit:.3f} s, "
           f"last_fit_timing_ {tm_fit}; fit_partial on the same frame (ingest "
-          f"short cut, history pack and both record layouts reused): wall "
+          f"short cut, history pack, both record layouts and both epoch "
+          f"graphs reused): wall "
           f"{wall_again:.3f} s, last_fit_timing_ {tm_again} ({CARD})",
           flush=True)
     other = raw.iloc[rng.permutation(len(raw))[:len(raw) * 9 // 10]]
+    g0 = graph_counts()
     _, wall_other = timed(torch, lambda: model.fit_partial(other, epochs=2))
+    check_graph_runs(g0, 2, 2, "fit_partial on another frame")
     check(model._packed_hist is not packed and len(model._rec_cache) == 2
           and not set(cached) & set(model._rec_cache),
           "fit_partial on another frame reused the caches")
@@ -2369,12 +2410,14 @@ def graph_vs_eager(torch, fused, scatter, tag, fn, tables, batches):
     from rankfm_tpu_torch.ops import graph as graph_mod
 
     e0 = 200
-    runner = graph_mod.EpochGraph(fn, tg, dev, tag)
+    # the graph kept beside its executable, to count its nodes
+    runner = graph_mod.EpochGraph(fn, tg, dev, tag, keep_graph=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     peak0 = torch.cuda.max_memory_allocated()
     before = [dict(c) for c in (fused.LAUNCHES, scatter.LAUNCHES)]
-    runner.capture(e0, eta)
+    runner.capture()
+    nodes = graph_nodes(runner.graph)
     ll_g = runner(e0, eta)
     torch.cuda.synchronize()
     peak1 = torch.cuda.max_memory_allocated()
@@ -2417,12 +2460,16 @@ def graph_vs_eager(torch, fused, scatter, tag, fn, tables, batches):
     after = [dict(c) for c in (fused.LAUNCHES, scatter.LAUNCHES)]
     for name, b, a, p in zip(("B1", "B2/B3"), before, after, per):
         for k, n in p.items():
-            # the capture's warm-up, then 4 replays and 4 eager epochs
-            check(a.get(k, 0) - b.get(k, 0) == 9 * n,
+            # 4 replays and 4 eager epochs; the capture counts none
+            check(a.get(k, 0) - b.get(k, 0) == 8 * n,
                   f"{tag}: {name} {k} counted {a.get(k, 0) - b.get(k, 0)} "
-                  f"launches for 4 replays of {n}, 4 eager epochs and a "
-                  f"warm-up")
+                  f"launches for 4 replays of {n} and 4 eager epochs")
     st = runner.stats
+    # the epochs a layout must run for its graph to cost less than eager
+    # epochs: capture + n * graph < n * eager
+    gain = min(walls["eager"]) - max(walls["graph"])
+    cost = st["capture_s"] + st["instantiate_s"]
+    even = math.ceil(cost / gain) if gain > 0 else None
 
     def share(w):
         return "not traced" if w[1] is None else \
@@ -2430,7 +2477,7 @@ def graph_vs_eager(torch, fused, scatter, tag, fn, tables, batches):
 
     rec = {"eager_s": walls["eager"], "graph_s": walls["graph"],
            "eager_busy": busy["eager"], "graph_busy": busy["graph"],
-           "nodes": st["nodes"], "warmup_s": st["warmup_s"],
+           "nodes": nodes, "break_even_epochs": even,
            "capture_s": st["capture_s"], "instantiate_s": st["instantiate_s"],
            "pool_bytes": st["pool_bytes"], "peak_bytes": peak1 - peak0,
            "launches": st["launches"]}
@@ -2438,12 +2485,26 @@ def graph_vs_eager(torch, fused, scatter, tag, fn, tables, batches):
           f"eager {', '.join(f'{x:.4f}' for x in walls['eager'])} s, graph "
           f"{', '.join(f'{x:.4f}' for x in walls['graph'])} s; device busy "
           f"eager {share(busy['eager'])}, graph {share(busy['graph'])}; "
-          f"{st['nodes']} nodes, warm-up {st['warmup_s']:.3f} s, capture "
-          f"{st['capture_s']:.3f} s, instantiate {st['instantiate_s']:.3f} "
-          f"s, pool {st['pool_bytes'] / 2**20:.1f} MiB reserved, peak "
+          f"{nodes} nodes, capture {st['capture_s']:.3f} s, instantiate "
+          f"{st['instantiate_s']:.3f} s (a layout's graph costs less than "
+          f"eager epochs from {even} epochs on), pool "
+          f"{st['pool_bytes'] / 2**20:.1f} MiB reserved, peak "
           f"allocated +{(peak1 - peak0) / 2**20:.1f} MiB; launches per "
           f"replay {st['launches']} ({CARD})", flush=True)
     return rec
+
+
+def graph_nodes(graph):
+    """The node count of a graph captured with ``keep_graph``, through
+    the driver (None where the driver library cannot be loaded)."""
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+    n = ctypes.c_size_t(0)
+    err = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                              ctypes.byref(n))
+    return int(n.value) if err == 0 else None
 
 
 def draws_card_vs_cpu(torch, fused, training):

@@ -105,7 +105,56 @@ class _FitRun:
         self.epoch_secs = []
         # pulls the packed tables back into model._w (set while training)
         self.pull = None
+        # the epoch graphs of the call before (`epoch_runner`); the model
+        # keeps this call's
+        self.kept, model._epoch_graphs = model._epoch_graphs, {}
+        self._sw_hash = None
         self.t0 = time.time()
+
+    def sw_hash(self):
+        """sha256 of the sample weights, not a weak checksum: a collision
+        would train with stale per-row weights baked into a cached record
+        layout or epoch graph (~10 ms for ML-1M-sized vectors, paid once a
+        call)."""
+        if self._sw_hash is None:
+            self._sw_hash = hashlib.sha256(np.ascontiguousarray(
+                self.m.sample_weight).tobytes()).digest()
+        return self._sw_hash
+
+    def features_hash(self):
+        """sha256 of the feature matrices (the graph of an epoch holds the
+        device copies of the call that captured it)."""
+        h = hashlib.sha256()
+        for x in (self.m.x_uf, self.m.x_if):
+            h.update(str(x.shape).encode())
+            h.update(np.ascontiguousarray(x).tobytes())
+        return h.digest()
+
+    def epoch_runner(self, fn, tables, name, key, deps):
+        """`graph_mod.epoch_runner` of one layout: on one CUDA device a
+        graph, kept on the model for the next call (`fit_partial` loops)
+        under ``key`` (the layout's own values: plan fields, shapes; the
+        data, weights, features and hyperparameters are added here) and
+        ``deps`` (the model's history tensors the epoch reads, by
+        identity). Without the ingest hash nothing is kept. A key the call
+        before did not capture drops that call's graphs, and their pools,
+        first."""
+        m = self.m
+        if (m.device.type != 'cuda' or m.mesh is not None
+                or m._ingest_hash is None):
+            key = None
+        else:
+            key = (name, key, m._ingest_hash, self.sw_hash(),
+                   self.features_hash(), m.seed, m.alpha, m.beta,
+                   tuple(map(id, deps)),
+                   tuple((k, None if t is None else tuple(t.shape))
+                         for k, t in sorted(tables.items())))
+            if key in self.kept:
+                m._epoch_graphs[key] = self.kept.pop(key)
+            else:
+                self.kept.clear()
+        return graph_mod.epoch_runner(fn, tables, m.device, m.mesh, name,
+                                      m._epoch_graphs, key, deps)
 
     def eta(self, epoch):
         m = self.m
@@ -244,18 +293,26 @@ class _FitRun:
         # epoch graph's static tables: the new feature tables an epoch
         # returns are copied into them
         w = {k: v.clone() for k, v in m.gather_weights().items()}
+        # the epoch reads no attribute of the model: a graph kept on the
+        # model must not hold the model
+        x_uf, x_if, alpha, beta, seed = (m._x_uf_dev, m._x_if_dev, m.alpha,
+                                         m.beta, m.seed)
 
         def train(t, epoch, eta):
             t_new, ll = epoch_fn(
-                t, m._x_uf_dev, m._x_if_dev, hist, u, i, sw, n, eta,
-                m.alpha, m.beta, m.seed, epoch)
+                t, x_uf, x_if, hist, u, i, sw, n, eta, alpha, beta, seed,
+                epoch)
             for k, v in t_new.items():
                 if v is not t[k]:
                     t[k].copy_(v)
             return ll
 
         # one device: every epoch replays one CUDA graph; else eager
-        run = graph_mod.epoch_runner(train, w, dev, m.mesh, name=step_kind)
+        deps = list(hist.values()) if isinstance(hist, dict) else [hist]
+        run = self.epoch_runner(
+            train, w, step_kind,
+            (num_items, plan.max_samples, plan.rounds, m._sampler,
+             plan.post_reject, mrl, bs_x, n, n_pad), deps)
         for epoch in epochs:
             t0 = time.time()
             ll = run(self.rng_off + epoch, self.eta(epoch))
@@ -308,12 +365,8 @@ class _FitRun:
 
         # grouped records are ~16 B/row; cache across fit_partial calls
         # (repeated fits on identical data would otherwise pay the host
-        # layout + a multi-MB host->device transfer per call).
-        # sha256, not a weak checksum: a collision here silently trains
-        # every epoch with STALE per-row weights baked into the cached
-        # record layout (~10 ms for ML-1M-sized vectors, paid once)
-        sw_hash = hashlib.sha256(
-            np.ascontiguousarray(m.sample_weight).tobytes()).digest()
+        # layout + a multi-MB host->device transfer per call)
+        sw_hash = self.sw_hash()
 
         def layout_for(chunk, ub):
             """``(rec, group, cids, ublk, iblk)`` on the device, cached on
@@ -392,6 +445,10 @@ class _FitRun:
 
         self.pull = pull_back
 
+        # the epochs read no attribute of the model: a graph kept on the
+        # model must not hold the model
+        alpha, beta, seed = m.alpha, m.beta, m.seed
+
         def run_epochs(epochs, chunk, ub, layout, n_windows, pre_shuffled):
             tables = dict(tab_u=tab_u, tab_i=tab_i, tab_uf=tab_uf,
                           tab_if=tab_if)
@@ -414,13 +471,16 @@ class _FitRun:
                     def train(t, e, eta):
                         return epoch_fn(
                             t["tab_u"], t["tab_i"], packed, lay, eta,
-                            m.alpha, m.seed, e, x_uf=x_uf, x_if=x_if,
+                            alpha, seed, e, x_uf=x_uf, x_if=x_if,
                             tab_uf=t["tab_uf"], tab_if=t["tab_if"],
-                            beta=m.beta)
+                            beta=beta)
 
-                    runners[r] = graph_mod.epoch_runner(
-                        train, tables, dev, m.mesh,
-                        name=f"fused, chunk {chunk}")
+                    runners[r] = self.epoch_runner(
+                        train, tables, f"fused, chunk {chunk}",
+                        (U, num_items, F, plan.max_samples,
+                         plan.batch_size, self.n, chunk, ub, n_windows,
+                         pre_shuffled, r),
+                        [packed])
                 return runners[r]
 
             for epoch in epochs:
@@ -595,6 +655,9 @@ class RankFM:
         self._rec_cache = None
         self._ingest_hash = None
         self._keep_cache = None
+        # the epoch CUDA graphs of the last fit call, by layout
+        # (`_FitRun.epoch_runner`)
+        self._epoch_graphs = {}
 
         self._user_items_view = None
         self._sim_cache = {}

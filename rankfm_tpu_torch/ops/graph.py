@@ -14,20 +14,25 @@ buffers the graph was captured with and replays it; the host enqueues one
 graph an epoch instead of hundreds to thousands of launches.
 
 Capture records work and runs none, so every epoch, the first included,
-runs by a replay. Before the capture one epoch runs on throwaway copies of
-the tables (loading every kernel library and CUDA module, setting the
-kernels' attributes and allocating the kernels' persistent scratch outside
-the graph's pool); the fit's tables are not trained by it. A capture that
-fails raises with the CUDA error: nothing falls back to the eager epoch.
+runs by a replay, and the capture trains nothing. Nothing runs before it
+but a small matrix product on the capture's stream, once per device, so
+that cuBLAS sets up its handle outside the graph; the kernels' libraries
+load, their modules load and their persistent scratch is allocated (in the
+graph's pool, zeroed by the graph) while the capture records. A capture
+that fails raises with the CUDA error: nothing falls back to the eager
+epoch.
 
 `epoch_runner` applies the graph to CUDA tables of a single device only;
 the CPU and the mesh (whose collectives cannot be captured over gloo) run
-the same epoch function eagerly.
+the same epoch function eagerly. Given a ``cache`` and a ``key``, a graph
+outlives its fit: a later fit whose key is equal (same data, layout,
+hyperparameters and table shapes) replays it with its own tables copied in
+before each replay and back after.
 """
 
 from __future__ import annotations
 
-import ctypes
+import gc
 import time
 from collections import Counter
 
@@ -43,9 +48,17 @@ _streams = {}
 
 
 def _capture_stream(device):
-    """The stream every capture (and its warm-up) on ``device`` runs on."""
+    """The stream every capture on ``device`` runs on; the first call on a
+    device also runs one small matrix product on it, which sets up the
+    cuBLAS handle and workspace of that stream outside any capture."""
     if device.index not in _streams:
-        _streams[device.index] = torch.cuda.Stream(device)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            a = torch.ones((2, 8, 8), device=device)
+            torch.bmm(a, a) @ a[0]
+        stream.synchronize()
+        _streams[device.index] = stream
     return _streams[device.index]
 
 
@@ -77,15 +90,20 @@ class EpochGraph:
     ``fn`` reads besides, are the graph's static buffers: they keep their
     addresses for the life of the graph.
 
-    ``stats``: ``warmup_s`` (the epoch on copies), ``capture_s`` (the
-    recording), ``instantiate_s``, ``nodes`` (the graph's node count, None
-    where this torch cannot show the graph), ``pool_bytes`` (device memory
-    the capture reserved: the graph's private pool) and ``launches`` (the
-    kernel launches of one replay, by wrapper and key)."""
+    ``keep_graph`` keeps the captured ``cudaGraph_t`` beside its
+    executable (`raw_cuda_graph`, for inspection) and instantiates it
+    apart from the capture.
 
-    def __init__(self, fn, tables, device, name="epoch"):
+    ``stats``: ``capture_s`` (the recording; without ``keep_graph`` the
+    instantiation too), ``instantiate_s`` (None without ``keep_graph``),
+    ``pool_bytes`` (device memory the capture reserved: the graph's
+    private pool) and ``launches`` (the kernel launches of one replay, by
+    wrapper and key)."""
+
+    def __init__(self, fn, tables, device, name="epoch", keep_graph=False):
         self.fn, self.tables, self.name = fn, tables, name
         self.device = torch.device(device)
+        self.keep_graph = keep_graph
         self.epoch = torch.zeros((), dtype=torch.int64, device=self.device)
         self.eta = torch.zeros((), dtype=torch.float32, device=self.device)
         self.graph = self.ll = None
@@ -97,28 +115,24 @@ class EpochGraph:
         self.epoch.fill_(int(epoch))
         self.eta.fill_(float(eta))
 
-    def capture(self, epoch, eta):
-        """Warm up on copies of the tables, then record one epoch."""
+    def capture(self):
+        """Record one epoch (the epoch and eta buffers as they are when it
+        replays)."""
         dev = self.device
         stream = _capture_stream(dev)
-        self._set(epoch, eta)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            copies = {k: None if t is None else t.clone()
-                      for k, t in self.tables.items()}
-            self.fn(copies, self.epoch, self.eta)
-            del copies
-        stream.synchronize()
-        t1 = time.perf_counter()
-        try:
-            graph, kept = torch.cuda.CUDAGraph(keep_graph=True), True
-        except TypeError:                 # a torch without keep_graph
-            graph, kept = torch.cuda.CUDAGraph(), False
+        graph = (torch.cuda.CUDAGraph(keep_graph=True) if self.keep_graph
+                 else torch.cuda.CUDAGraph())
         counters = _counters()
         before = [Counter(c) for c in counters]
+        torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        # no garbage collection while recording: an unreachable graph it
+        # destroyed would free device memory, which ends the capture
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=stream,
                                   capture_error_mode="thread_local"):
@@ -127,12 +141,13 @@ class EpochGraph:
             raise GraphCaptureError(
                 f"capturing the epoch ({self.name}) as a CUDA graph "
                 f"failed: {e}") from e
-        t2 = time.perf_counter()
-        nodes = None
-        if kept:
-            nodes = _node_count(graph)
+        finally:
+            if gc_on:
+                gc.enable()
+        t1 = time.perf_counter()
+        if self.keep_graph:
             graph.instantiate()
-        t3 = time.perf_counter()
+        t2 = time.perf_counter()
         # the wrappers counted what they recorded; the replays count it
         self.launches = tuple(c - b for c, b in zip(counters, before))
         for c, d in zip(counters, self.launches):
@@ -140,44 +155,57 @@ class EpochGraph:
         self.graph, self.ll = graph, ll
         self.scratch = _scratch_of(stream)
         RUNS["capture"] += 1
-        self.stats = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
-                      "instantiate_s": t3 - t2, "nodes": nodes,
+        self.stats = {"capture_s": t1 - t0,
+                      "instantiate_s": t2 - t1 if self.keep_graph else None,
                       "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
                       "launches": {"fused": dict(self.launches[0]),
                                    "scatter": dict(self.launches[1])}}
 
-    def __call__(self, epoch, eta):
+    def __call__(self, epoch, eta, tables=None):
         """Epoch ``epoch`` at learning rate ``eta`` (captured at the first
-        call); returns its log-likelihood (a 0-dim tensor of its own)."""
+        call); returns its log-likelihood (a 0-dim tensor of its own).
+        ``tables``: the caller's tables when they are not the graph's own
+        (a graph kept from an earlier fit), copied in before the replay
+        and back after."""
         if self.graph is None:
-            self.capture(epoch, eta)
+            self.capture()
+        other = tables is not None and tables is not self.tables
+        if other:
+            for k, t in tables.items():
+                if t is not None:
+                    self.tables[k].copy_(t)
         self._set(epoch, eta)
         self.graph.replay()
         RUNS["replay"] += 1
         for c, d in zip(_counters(), self.launches):
             c.update(d)
+        if other:
+            for k, t in tables.items():
+                if t is not None:
+                    t.copy_(self.tables[k])
         return self.ll.clone()
 
 
-def _node_count(graph):
-    """The node count of a captured graph kept for inspection, through the
-    driver (None where the driver library cannot be loaded)."""
-    try:
-        handle = graph.raw_cuda_graph()
-        lib = ctypes.CDLL("libcuda.so.1")
-    except (AttributeError, RuntimeError, OSError):
-        return None
-    n = ctypes.c_size_t(0)
-    err = lib.cuGraphGetNodes(ctypes.c_void_p(handle), None, ctypes.byref(n))
-    return int(n.value) if err == 0 else None
-
-
-def epoch_runner(fn, tables, device, mesh=None, name="epoch"):
+def epoch_runner(fn, tables, device, mesh=None, name="epoch", cache=None,
+                 key=None, deps=()):
     """``run(epoch, eta) -> ll``: an `EpochGraph` of ``fn`` when the tables
     are CUDA tensors of a single device (``mesh`` None), else ``fn``
     called eagerly with the same arguments (``epoch`` and ``eta`` as
-    numbers)."""
+    numbers).
+
+    ``cache`` (a dict) and ``key`` (hashable; None for no reuse) keep the
+    graph for a later call, which replays it with its own tables. ``key``
+    must name everything the graph holds besides the tables: the values it
+    was captured with (data and layouts by content, hyperparameters,
+    shapes) and the device tensors ``fn`` reads (``deps``, by identity);
+    the graph holds ``deps``, so that no other tensor takes their ids."""
     device = torch.device(device)
-    if device.type == "cuda" and mesh is None:
+    if device.type != "cuda" or mesh is not None:
+        return lambda epoch, eta: fn(tables, epoch, eta)
+    if cache is None or key is None:
         return EpochGraph(fn, tables, device, name)
-    return lambda epoch, eta: fn(tables, epoch, eta)
+    g = cache.get(key)
+    if g is None:
+        g = cache[key] = EpochGraph(fn, tables, device, name)
+        g.deps = tuple(deps)
+    return lambda epoch, eta: g(epoch, eta, tables)

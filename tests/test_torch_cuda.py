@@ -989,13 +989,13 @@ def test_graph_epoch_equals_eager_epoch(cuda, kind, features):
     fn, tables = _engine_epoch(m, "fused" if kind == "fused" else kind)
     te = {k: None if v is None else v.clone() for k, v in tables.items()}
     tg = {k: None if v is None else v.clone() for k, v in tables.items()}
-    runner = graph.EpochGraph(fn, tg, cuda, kind)
+    runner = graph.EpochGraph(fn, tg, cuda, kind, keep_graph=True)
     for epoch, eta in ((3, 0.1), (4, 0.07), (5, 0.05)):
         before = (Counter(fused.LAUNCHES), Counter(scatter.LAUNCHES))
         ll_g = runner(epoch, eta)
-        if epoch > 3:      # (the first call also ran the warm-up)
-            assert (Counter(fused.LAUNCHES) - before[0], Counter(
-                scatter.LAUNCHES) - before[1]) == runner.launches
+        # the capture at the first call counts nothing, the replay all
+        assert (Counter(fused.LAUNCHES) - before[0], Counter(
+            scatter.LAUNCHES) - before[1]) == runner.launches
         ll_e = fn(te, epoch, eta)
         torch.cuda.synchronize()
         assert _same_bytes(ll_g, ll_e)
@@ -1003,7 +1003,90 @@ def test_graph_epoch_equals_eager_epoch(cuda, kind, features):
             if te[k] is not None:
                 assert _same_bytes(te[k], tg[k]), (epoch, k)
     assert sum(runner.launches[0 if kind == "fused" else 1].values()) > 0
-    assert runner.stats["capture_s"] > 0 and runner.stats["nodes"]
+    assert runner.stats["capture_s"] > 0 and _graph_nodes(runner.graph) > 0
+
+
+def _graph_nodes(g):
+    """Nodes of a graph captured with ``keep_graph`` (the driver's count)."""
+    import ctypes
+    n = ctypes.c_size_t(0)
+    assert ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n)) == 0
+    return n.value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["xla", "fused"])
+def test_fit_partial_replays_the_graphs_of_the_call_before(cuda, engine):
+    """``fit(1)`` + ``fit_partial(1)`` on the same data equals ``fit(2)``
+    on the card, to the byte, and the ``fit_partial`` captures no graph:
+    it replays the one the fit captured, with its own tables copied in;
+    on other data it captures anew."""
+    from rankfm_tpu_torch import RankFM
+    from rankfm_tpu_torch.ops import graph
+
+    rng = np.random.default_rng(5)
+    train = np.stack([rng.integers(0, 30, 600), rng.integers(0, 50, 600)], 1)
+    cfg = dict(factors=4, loss="warp", max_samples=4, batch_size=256,
+               seed=99, learning_schedule="constant", device="cuda")
+    if engine == "xla":
+        cfg["use_fused"] = False
+    else:
+        cfg["train_step"] = "window"
+    one = RankFM(**cfg).fit(train, epochs=2)
+    two = RankFM(**cfg).fit(train, epochs=1)
+    before = dict(graph.RUNS)
+    two.fit_partial(train, epochs=1)
+    assert (graph.RUNS["capture"] - before["capture"],
+            graph.RUNS["replay"] - before["replay"]) == (0, 1)
+    for k in ("v_u", "v_i", "w_i"):
+        assert getattr(one, k).tobytes() == getattr(two, k).tobytes(), k
+    before = dict(graph.RUNS)
+    two.fit_partial(train[:500], epochs=1)
+    assert graph.RUNS["capture"] - before["capture"] == 1
+
+
+COLD_FIT = """
+import sys, numpy as np, torch
+sys.path.insert(0, {root!r})
+from rankfm_tpu_torch import RankFM
+from rankfm_tpu_torch.ops import graph
+rng = np.random.default_rng(5)
+train = np.stack([rng.integers(0, 300, 6000), rng.integers(0, {items}, 6000)],
+                 1)
+kw = dict(factors=8, loss="warp", max_samples=10, use_fused={fused},
+          device="cuda")
+# the first CUDA work of this process: every kernel, library and module is
+# loaded while the fit's first layout is captured
+cold = RankFM(**kw).fit(train, epochs=2)
+runs = dict(graph.RUNS)
+warm = RankFM(**kw).fit(train, epochs=2)
+assert runs["replay"] == 2 and runs["capture"] >= 1, runs
+for k, v in cold._weights.items():
+    assert np.isfinite(v).all(), k
+    assert v.tobytes() == warm._weights[k].tobytes(), k
+print("cold", runs)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused,items", [(True, 500), (False, 500),
+                                         (False, 40_000)])
+def test_first_capture_of_a_process_needs_no_warm_up(cuda, fused, items):
+    """A fit whose epoch graph is the first CUDA work of its process (the
+    fused epoch, the window step, the candidate step) captures without a
+    warm-up epoch, and trains what the same fit trains once everything is
+    loaded, to the byte."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", COLD_FIT.format(
+        root=root, fused=fused, items=items)], capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "cold" in out.stdout
 
 
 @pytest.mark.cuda
