@@ -21,8 +21,14 @@ is its plain PyTorch version. Around them, the host half of `rankfm_tpu`:
   that reuses the history and the record layouts of the call before;
 * ``model.save(path)`` / ``RankFM.load(path, device='cuda')``: the JAX
   package's pickle-free ``.npz``, readable by either package;
-* ``baselines.ImplicitALS`` and ``utils.observe`` (``trace``,
-  ``device_memory_stats``);
+* ``baselines.ImplicitALS`` and ``utils.observe`` (``trace``, ``span``,
+  ``device_memory_stats``): under ``observe.trace(dir)`` (or any
+  ``torch.profiler`` trace) each fit and request shows as a
+  ``rankfm.fit`` / ``rankfm.recommend`` range holding one range per phase
+  (ingest, layouts, each engine's epochs, graph captures and replays; id
+  map, scoring, the wait for the card, the DataFrame), beside the card's
+  kernels when the trace is opened in Perfetto; with no profiler
+  recording, a span costs one flag check;
 * ``parallel``: ``init_distributed`` and ``make_mesh`` on
   ``torch.distributed``, then ``RankFM(mesh=...)`` on every rank: the
   data-parallel and table-parallel placements and sharded retrieval.

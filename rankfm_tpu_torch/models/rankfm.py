@@ -48,6 +48,7 @@ from rankfm_tpu_torch.ops import graph as graph_mod
 from rankfm_tpu_torch.ops import scoring, topk, training
 from rankfm_tpu_torch.ops.negatives import build_bitmap_words
 from rankfm_tpu_torch.parallel.fused import make_fused_dp_epoch_fn
+from rankfm_tpu_torch.utils import observe
 from rankfm_tpu_torch.utils.convert import weights_from_numpy, weights_to_numpy
 from rankfm_tpu_torch.utils.data import (
     _int64_view,
@@ -215,22 +216,25 @@ class _FitRun:
             self.run_fused()
         else:
             self.run_xla(range(plan.n_main + plan.n_tail))
-        t_disp = time.time()
-        # epoch 0's call holds whatever the first use costs (the kernels'
-        # build and load); grab it before finish() rewrites epoch_secs with
-        # the synced average
-        ep0 = self.epoch_secs[0] if self.epoch_secs else 0.0
-        # finish() reads every epoch's ll on the host, which waits for the
-        # last epoch; the explicit sync also covers what was enqueued after
-        # the last ll (the tables pulled back into the model), so block_s
-        # ends with the device idle
-        self.finish()
-        if self.m.device.type == 'cuda':
-            torch.cuda.synchronize(self.m.device)
-        tm = self.m.last_fit_timing_
-        tm["epoch0_call_s"] = round(ep0, 2)
-        tm["dispatch_s"] = round(t_disp - t0, 2)   # host-side: all epochs enqueued
-        tm["block_s"] = round(time.time() - t_disp, 2)  # device drain + ll sync
+        with observe.span("rankfm.fit.finish"):
+            t_disp = time.time()
+            # epoch 0's call holds whatever the first use costs (the kernels'
+            # build and load); grab it before finish() rewrites epoch_secs with
+            # the synced average
+            ep0 = self.epoch_secs[0] if self.epoch_secs else 0.0
+            # finish() reads every epoch's ll on the host, which waits for the
+            # last epoch; the explicit sync also covers what was enqueued after
+            # the last ll (the tables pulled back into the model), so block_s
+            # ends with the device idle
+            self.finish()
+            if self.m.device.type == 'cuda':
+                torch.cuda.synchronize(self.m.device)
+            tm = self.m.last_fit_timing_
+            tm["epoch0_call_s"] = round(ep0, 2)
+            # host-side: all epochs enqueued
+            tm["dispatch_s"] = round(t_disp - t0, 2)
+            # device drain + ll sync
+            tm["block_s"] = round(time.time() - t_disp, 2)
 
     def run_xla(self, epochs, step_kind=None):
         """Epochs of the XLA window or candidate step, on one device or
@@ -238,87 +242,90 @@ class _FitRun:
         numbering so the eta schedule and the random streams line up with
         any fused epochs before them."""
         m, plan = self.m, self.plan
-        self.pull = None  # m._w is updated every epoch here
-        n, num_items = self.n, self.I
-        dev = m.device
-        bs_x = plan.xla_batch
         if step_kind is None:
             step_kind = plan.step_kind
-        # the batch count quantized into ~3%-wide buckets, as in the JAX
-        # package (its compiled shapes); pad rows are invalid
-        nb_x = max(1, math.ceil(n / bs_x))
-        qb = 1 << max(0, nb_x.bit_length() - 6)
-        n_pad = -(-nb_x // qb) * qb * bs_x
-        u = torch.zeros(n_pad, dtype=torch.int64)
-        i = torch.zeros(n_pad, dtype=torch.int64)
-        sw = torch.zeros(n_pad, dtype=torch.float32)
-        u[:n] = torch.from_numpy(m.interactions[:, 0].astype(np.int64))
-        i[:n] = torch.from_numpy(m.interactions[:, 1].astype(np.int64))
-        sw[:n] = torch.from_numpy(m.sample_weight)
-        u, i, sw = u.to(dev), i.to(dev), sw.to(dev)
-        mrl = (int(np.diff(m._ui_offsets).max())
-               if len(m._ui_offsets) > 1 else 1)
-        if plan.placement == 'tp':
-            self.run_tp(epochs, step_kind, u, i, sw, mrl)
-            return
-        if step_kind == 'candidate':
-            hist = {"offsets": m._offsets_dev, "flat": m._flat_items_dev,
-                    "bitmap": m._ensure_bitmap()}
-        else:
-            hist = m._ensure_packed_hist()
-        if m.mesh is not None:
-            # data-parallel: replicated tables, one delta all-reduce per
-            # sync group (the JAX DP path's step, `parallel.train`)
-            from rankfm_tpu_torch.parallel.train import make_sharded_epoch_fn
-            epoch_fn = make_sharded_epoch_fn(
-                m.mesh, num_items, plan.max_samples, self.x_uf_any,
-                self.x_if_any, bs_x, sample_rounds=plan.rounds,
-                sampler=m._sampler, step_kind=step_kind,
-                dp_sync_every=m.dp_sync_every)
-        else:
+        engine = 'tp' if plan.placement == 'tp' else step_kind
+        with observe.span(f"rankfm.fit.epochs.{engine}"):
+            self.pull = None  # m._w is updated every epoch here
+            n, num_items = self.n, self.I
+            dev = m.device
+            bs_x = plan.xla_batch
+            # the batch count quantized into ~3%-wide buckets, as in the JAX
+            # package (its compiled shapes); pad rows are invalid
+            nb_x = max(1, math.ceil(n / bs_x))
+            qb = 1 << max(0, nb_x.bit_length() - 6)
+            n_pad = -(-nb_x // qb) * qb * bs_x
+            u = torch.zeros(n_pad, dtype=torch.int64)
+            i = torch.zeros(n_pad, dtype=torch.int64)
+            sw = torch.zeros(n_pad, dtype=torch.float32)
+            u[:n] = torch.from_numpy(m.interactions[:, 0].astype(np.int64))
+            i[:n] = torch.from_numpy(m.interactions[:, 1].astype(np.int64))
+            sw[:n] = torch.from_numpy(m.sample_weight)
+            u, i, sw = u.to(dev), i.to(dev), sw.to(dev)
+            mrl = (int(np.diff(m._ui_offsets).max())
+                   if len(m._ui_offsets) > 1 else 1)
+            if plan.placement == 'tp':
+                self.run_tp(epochs, step_kind, u, i, sw, mrl)
+                return
             if step_kind == 'candidate':
-                step = training.make_train_step(
-                    num_items, plan.max_samples, self.x_uf_any,
-                    self.x_if_any, sample_rounds=plan.rounds,
-                    sampler=m._sampler, post_reject=plan.post_reject,
-                    max_row_len=mrl)
+                hist = {"offsets": m._offsets_dev, "flat": m._flat_items_dev,
+                        "bitmap": m._ensure_bitmap()}
             else:
-                step = training.make_window_train_step(
-                    num_items, plan.max_samples, self.x_uf_any,
-                    self.x_if_any)
-            epoch_fn = training.epoch_body(step, bs_x)
-        # the steps update the item and user tables in place: train copies,
-        # so arrays handed out before this fit (`_weights`, `v_i`, ...; on
-        # the CPU these are views) keep their values. The copies are the
-        # epoch graph's static tables: the new feature tables an epoch
-        # returns are copied into them
-        w = {k: v.clone() for k, v in m.gather_weights().items()}
-        # the epoch reads no attribute of the model: a graph kept on the
-        # model must not hold the model
-        x_uf, x_if, alpha, beta, seed = (m._x_uf_dev, m._x_if_dev, m.alpha,
-                                         m.beta, m.seed)
+                hist = m._ensure_packed_hist()
+            if m.mesh is not None:
+                # data-parallel: replicated tables, one delta all-reduce per
+                # sync group (the JAX DP path's step, `parallel.train`)
+                from rankfm_tpu_torch.parallel.train import (
+                    make_sharded_epoch_fn)
+                epoch_fn = make_sharded_epoch_fn(
+                    m.mesh, num_items, plan.max_samples, self.x_uf_any,
+                    self.x_if_any, bs_x, sample_rounds=plan.rounds,
+                    sampler=m._sampler, step_kind=step_kind,
+                    dp_sync_every=m.dp_sync_every)
+            else:
+                if step_kind == 'candidate':
+                    step = training.make_train_step(
+                        num_items, plan.max_samples, self.x_uf_any,
+                        self.x_if_any, sample_rounds=plan.rounds,
+                        sampler=m._sampler, post_reject=plan.post_reject,
+                        max_row_len=mrl)
+                else:
+                    step = training.make_window_train_step(
+                        num_items, plan.max_samples, self.x_uf_any,
+                        self.x_if_any)
+                epoch_fn = training.epoch_body(step, bs_x)
+            # the steps update the item and user tables in place: train copies,
+            # so arrays handed out before this fit (`_weights`, `v_i`, ...; on
+            # the CPU these are views) keep their values. The copies are the
+            # epoch graph's static tables: the new feature tables an epoch
+            # returns are copied into them
+            w = {k: v.clone() for k, v in m.gather_weights().items()}
+            # the epoch reads no attribute of the model: a graph kept on the
+            # model must not hold the model
+            x_uf, x_if, alpha, beta, seed = (m._x_uf_dev, m._x_if_dev, m.alpha,
+                                             m.beta, m.seed)
 
-        def train(t, epoch, eta):
-            t_new, ll = epoch_fn(
-                t, x_uf, x_if, hist, u, i, sw, n, eta, alpha, beta, seed,
-                epoch)
-            for k, v in t_new.items():
-                if v is not t[k]:
-                    t[k].copy_(v)
-            return ll
+            def train(t, epoch, eta):
+                t_new, ll = epoch_fn(
+                    t, x_uf, x_if, hist, u, i, sw, n, eta, alpha, beta, seed,
+                    epoch)
+                for k, v in t_new.items():
+                    if v is not t[k]:
+                        t[k].copy_(v)
+                return ll
 
-        # one device: every epoch replays one CUDA graph; else eager
-        deps = list(hist.values()) if isinstance(hist, dict) else [hist]
-        run = self.epoch_runner(
-            train, w, step_kind,
-            (num_items, plan.max_samples, plan.rounds, m._sampler,
-             plan.post_reject, mrl, bs_x, n, n_pad), deps)
-        for epoch in epochs:
-            t0 = time.time()
-            ll = run(self.rng_off + epoch, self.eta(epoch))
-            m._w = w
-            self.log_epoch(epoch, _ll_guard(ll, list(w.values())),
-                           time.time() - t0)
+            # one device: every epoch replays one CUDA graph; else eager
+            deps = list(hist.values()) if isinstance(hist, dict) else [hist]
+            run = self.epoch_runner(
+                train, w, step_kind,
+                (num_items, plan.max_samples, plan.rounds, m._sampler,
+                 plan.post_reject, mrl, bs_x, n, n_pad), deps)
+            for epoch in epochs:
+                t0 = time.time()
+                ll = run(self.rng_off + epoch, self.eta(epoch))
+                m._w = w
+                self.log_epoch(epoch, _ll_guard(ll, list(w.values())),
+                               time.time() - t0)
 
     def run_tp(self, epochs, step_kind, u, i, sw, mrl):
         """Table-parallel epochs (`parallel.tp`): each rank trains its row
@@ -351,170 +358,184 @@ class _FitRun:
         m, plan = self.m, self.plan
         U, num_items, F = self.U, self.I, self.F
         dev = m.device
-        tm, tm0 = m.last_fit_timing_, time.time()
-        I_pad = fused_mod.item_pad(num_items)
-        packed = m._ensure_packed_hist()
-        tm["hist_pack_s"] = round(time.time() - tm0, 2)
+        with observe.span("rankfm.fit.prep"):
+            tm, tm0 = m.last_fit_timing_, time.time()
+            with observe.span("rankfm.fit.hist_pack"):
+                packed = m._ensure_packed_hist()
+                tm["hist_pack_s"] = round(time.time() - tm0, 2)
+            I_pad = fused_mod.item_pad(num_items)
 
-        # the tables are fresh tensors (copies): arrays handed out before
-        # this fit (`_weights`, `v_i`, ...) keep their values
-        w = m.gather_weights()
-        U_pad = fused_mod.user_pad(U, plan.user_block)
-        tab_u, tab_i = fused_mod.extend_tables(
-            w["w_i"], w["v_u"], w["v_i"], U_pad, I_pad)
+            # the tables are fresh tensors (copies): arrays handed out
+            # before this fit (`_weights`, `v_i`, ...) keep their values
+            w = m.gather_weights()
+            U_pad = fused_mod.user_pad(U, plan.user_block)
+            tab_u, tab_i = fused_mod.extend_tables(
+                w["w_i"], w["v_u"], w["v_i"], U_pad, I_pad)
 
-        # grouped records are ~16 B/row; cache across fit_partial calls
-        # (repeated fits on identical data would otherwise pay the host
-        # layout + a multi-MB host->device transfer per call)
-        sw_hash = self.sw_hash()
+            # grouped records are ~16 B/row; cache across fit_partial calls
+            # (repeated fits on identical data would otherwise pay the host
+            # layout + a multi-MB host->device transfer per call)
+            sw_hash = self.sw_hash()
 
-        def layout_for(chunk, ub):
-            """``(rec, group, cids, ublk, iblk)`` on the device, cached on
-            the model under the ingest hash (no hash, no cache)."""
-            rec_key = (m._ingest_hash, plan.batch_size, chunk, ub, self.n,
-                       sw_hash)
-            cache = m._rec_cache if isinstance(m._rec_cache, dict) else {}
-            if rec_key in cache and m._ingest_hash is not None:
-                return cache[rec_key]
-            rec, group, cids, ublk, iblk = fused_mod.deal_by_fraction(
-                fused_mod.make_records_grouped(
-                    m.interactions[:, 0], m.interactions[:, 1],
-                    m.sample_weight, U, num_items, plan.batch_size, chunk,
-                    ub=ub),
-                chunk, U, num_items, ub=ub)
-            layout = tuple(torch.from_numpy(a).to(dev)
-                           for a in (rec, group, cids, ublk, iblk))
-            if m._ingest_hash is not None:
-                while len(cache) >= 4:  # both schedule layouts + headroom
-                    cache.pop(next(iter(cache)))
-                cache[rec_key] = layout
-                m._rec_cache = cache
-            return layout
+            def layout_for(chunk, ub):
+                """``(rec, group, cids, ublk, iblk)`` on the device, cached
+                on the model under the ingest hash (no hash, no cache)."""
+                rec_key = (m._ingest_hash, plan.batch_size, chunk, ub,
+                           self.n, sw_hash)
+                cache = (m._rec_cache if isinstance(m._rec_cache, dict)
+                         else {})
+                if rec_key in cache and m._ingest_hash is not None:
+                    return cache[rec_key]
+                with observe.span("rankfm.fit.layout"):
+                    rec, group, cids, ublk, iblk = fused_mod.deal_by_fraction(
+                        fused_mod.make_records_grouped(
+                            m.interactions[:, 0], m.interactions[:, 1],
+                            m.sample_weight, U, num_items, plan.batch_size,
+                            chunk, ub=ub),
+                        chunk, U, num_items, ub=ub)
+                    layout = tuple(torch.from_numpy(a).to(dev)
+                                   for a in (rec, group, cids, ublk, iblk))
+                    if m._ingest_hash is not None:
+                        # both schedule layouts + headroom
+                        while len(cache) >= 4:
+                            cache.pop(next(iter(cache)))
+                        cache[rec_key] = layout
+                        m._rec_cache = cache
+                return layout
 
-        main_layout = layout_for(plan.chunk, plan.user_block)
-        # R pre-shuffled layouts cycled over the epochs (`shuffle_layouts`):
-        # R sorts a fit instead of one an epoch, built when first used;
-        # layout r = (epoch stream position) % R, keyed by (seed, r), so a
-        # fit_partial continues the cycle
-        R = plan.shuffle_layouts
-        shuffled = {}
-        shuffle = fused_mod.make_shuffle_fn(U, num_items, ub=plan.user_block)
+            main_layout = layout_for(plan.chunk, plan.user_block)
+            # R pre-shuffled layouts cycled over the epochs
+            # (`shuffle_layouts`): R sorts a fit instead of one an epoch,
+            # built when first used; layout r = (epoch stream position) % R,
+            # keyed by (seed, r), so a fit_partial continues the cycle
+            R = plan.shuffle_layouts
+            shuffled = {}
+            shuffle = fused_mod.make_shuffle_fn(U, num_items,
+                                                ub=plan.user_block)
 
-        def rec_for(epoch):
-            r = (self.rng_off + epoch) % R
-            if r not in shuffled:
-                rec, group = main_layout[:2]
-                shuffled[r] = shuffle(rec, group, fused_mod.shuffle_bits(
-                    fused_mod.layout_key(m.seed, r, device=dev),
-                    rec.shape[0]))
-            return shuffled[r]
+            def rec_for(epoch):
+                r = (self.rng_off + epoch) % R
+                if r not in shuffled:
+                    rec, group = main_layout[:2]
+                    shuffled[r] = shuffle(rec, group, fused_mod.shuffle_bits(
+                        fused_mod.layout_key(m.seed, r, device=dev),
+                        rec.shape[0]))
+                return shuffled[r]
 
-        if m.mesh is not None:
-            # each batch's chunks dealt to the ranks (device-major)
-            main_layout = main_layout[:2] + fused_mod.split_layout_for_mesh(
-                *main_layout[2:], plan.n_dev)
-        # grouped record layout: host numpy segmented shuffle + the multi-MB
-        # host->device copy
-        tm["records_s"] = round(time.time() - tm0 - tm["hist_pack_s"], 2)
-        # side features: the padded feature matrices and the small packed
-        # feature tables (v_uf; v_if with w_if in col F)
-        x_uf = x_if = tab_uf = tab_if = None
-        if self.x_uf_any or self.x_if_any:
-            tab_uf, tab_if = fused_mod.extend_feature_tables(
-                w["v_uf"], w["w_if"], w["v_if"])
-            if self.x_uf_any:
-                x_uf = fused_mod.pad_feature_cols(m._x_uf_dev, U_pad)
-            else:
-                tab_uf = None
-            if self.x_if_any:
-                x_if = fused_mod.pad_feature_cols(m._x_if_dev, I_pad)
-            else:
-                tab_if = None
+            if m.mesh is not None:
+                # each batch's chunks dealt to the ranks (device-major)
+                main_layout = (main_layout[:2]
+                               + fused_mod.split_layout_for_mesh(
+                                   *main_layout[2:], plan.n_dev))
+            # grouped record layout: host numpy segmented shuffle + the
+            # multi-MB host->device copy
+            tm["records_s"] = round(time.time() - tm0 - tm["hist_pack_s"], 2)
+            # side features: the padded feature matrices and the small packed
+            # feature tables (v_uf; v_if with w_if in col F)
+            x_uf = x_if = tab_uf = tab_if = None
+            if self.x_uf_any or self.x_if_any:
+                tab_uf, tab_if = fused_mod.extend_feature_tables(
+                    w["v_uf"], w["w_if"], w["v_if"])
+                if self.x_uf_any:
+                    x_uf = fused_mod.pad_feature_cols(m._x_uf_dev, U_pad)
+                else:
+                    tab_uf = None
+                if self.x_if_any:
+                    x_if = fused_mod.pad_feature_cols(m._x_if_dev, I_pad)
+                else:
+                    tab_if = None
 
-        def pull_back():
-            w_i, v_u, v_i = fused_mod.extract_tables(
-                tab_u, tab_i, U, num_items, F)
-            upd = dict(w_i=w_i, v_u=v_u, v_i=v_i)
-            v_uf, w_if, v_if = fused_mod.extract_feature_tables(
-                tab_uf, tab_if, m.x_uf.shape[1], m.x_if.shape[1], F)
-            if tab_uf is not None:
-                upd["v_uf"] = v_uf
-            if tab_if is not None:
-                upd.update(w_if=w_if, v_if=v_if)
-            m._w = dict(m._w, **upd)
+            def pull_back():
+                with observe.span("rankfm.fit.pull"):
+                    w_i, v_u, v_i = fused_mod.extract_tables(
+                        tab_u, tab_i, U, num_items, F)
+                    upd = dict(w_i=w_i, v_u=v_u, v_i=v_i)
+                    v_uf, w_if, v_if = fused_mod.extract_feature_tables(
+                        tab_uf, tab_if, m.x_uf.shape[1], m.x_if.shape[1], F)
+                    if tab_uf is not None:
+                        upd["v_uf"] = v_uf
+                    if tab_if is not None:
+                        upd.update(w_if=w_if, v_if=v_if)
+                    m._w = dict(m._w, **upd)
 
-        self.pull = pull_back
+            self.pull = pull_back
 
-        # the epochs read no attribute of the model: a graph kept on the
-        # model must not hold the model
-        alpha, beta, seed = m.alpha, m.beta, m.seed
+            # the epochs read no attribute of the model: a graph kept on the
+            # model must not hold the model
+            alpha, beta, seed = m.alpha, m.beta, m.seed
 
-        def run_epochs(epochs, chunk, ub, layout, n_windows, pre_shuffled):
-            tables = dict(tab_u=tab_u, tab_i=tab_i, tab_uf=tab_uf,
-                          tab_if=tab_if)
-            live = [t for t in tables.values() if t is not None]
-            # one device, or this rank of the data-parallel mesh
-            epoch_fn = make_fused_dp_epoch_fn(
-                m.mesh, U, num_items, F, plan.max_samples, plan.batch_size,
-                chunk, ub=ub, n_windows=n_windows,
-                sync_every=m.dp_sync_every, pre_shuffled=pre_shuffled)
-            # one runner per layout (each pre-shuffled layout r its own):
-            # on one device a CUDA graph captured at its first epoch
-            runners = {}
+            def run_epochs(epochs, chunk, ub, layout, n_windows,
+                           pre_shuffled):
+                tables = dict(tab_u=tab_u, tab_i=tab_i, tab_uf=tab_uf,
+                              tab_if=tab_if)
+                live = [t for t in tables.values() if t is not None]
+                # one device, or this rank of the data-parallel mesh
+                epoch_fn = make_fused_dp_epoch_fn(
+                    m.mesh, U, num_items, F, plan.max_samples,
+                    plan.batch_size, chunk, ub=ub, n_windows=n_windows,
+                    sync_every=m.dp_sync_every, pre_shuffled=pre_shuffled)
+                # one runner per layout (each pre-shuffled layout r its own):
+                # on one device a CUDA graph captured at its first epoch
+                runners = {}
 
-            def runner(epoch):
-                r = (self.rng_off + epoch) % R if pre_shuffled else -1
-                if r not in runners:
-                    lay = ((rec_for(epoch),) + layout[1:] if pre_shuffled
-                           else layout)
+                def runner(epoch):
+                    r = (self.rng_off + epoch) % R if pre_shuffled else -1
+                    if r not in runners:
+                        lay = ((rec_for(epoch),) + layout[1:] if pre_shuffled
+                               else layout)
 
-                    def train(t, e, eta):
-                        return epoch_fn(
-                            t["tab_u"], t["tab_i"], packed, lay, eta,
-                            alpha, seed, e, x_uf=x_uf, x_if=x_if,
-                            tab_uf=t["tab_uf"], tab_if=t["tab_if"],
-                            beta=beta)
+                        def train(t, e, eta):
+                            return epoch_fn(
+                                t["tab_u"], t["tab_i"], packed, lay, eta,
+                                alpha, seed, e, x_uf=x_uf, x_if=x_if,
+                                tab_uf=t["tab_uf"], tab_if=t["tab_if"],
+                                beta=beta)
 
-                    runners[r] = self.epoch_runner(
-                        train, tables, f"fused, chunk {chunk}",
-                        (U, num_items, F, plan.max_samples,
-                         plan.batch_size, self.n, chunk, ub, n_windows,
-                         pre_shuffled, r),
-                        [packed])
-                return runners[r]
+                        runners[r] = self.epoch_runner(
+                            train, tables, f"fused, chunk {chunk}",
+                            (U, num_items, F, plan.max_samples,
+                             plan.batch_size, self.n, chunk, ub, n_windows,
+                             pre_shuffled, r),
+                            [packed])
+                    return runners[r]
 
-            for epoch in epochs:
-                t0 = time.time()
-                ll = runner(epoch)(self.rng_off + epoch, self.eta(epoch))
-                self.log_epoch(epoch, _ll_guard(ll, live), time.time() - t0)
+                for epoch in epochs:
+                    t0 = time.time()
+                    ll = runner(epoch)(self.rng_off + epoch, self.eta(epoch))
+                    self.log_epoch(epoch, _ll_guard(ll, live),
+                                   time.time() - t0)
 
+            # everything pre-epoch-0
+            tm["prep_s"] = round(time.time() - tm0, 2)
         # chunk-tail schedule: the closing epochs run at the oracle-parity
         # layout (tail_chunk rows @ tail_user_block users), which pads the
         # user table differently — the live tables (and the padded user
         # features) are re-extended
-        tm["prep_s"] = round(time.time() - tm0, 2)  # everything pre-epoch-0
         n_ct = plan.chunk_tail
-        run_epochs(range(plan.n_main - n_ct), plan.chunk, plan.user_block,
-                   main_layout, plan.n_windows, R > 1)
+        with observe.span("rankfm.fit.epochs.fused"):
+            run_epochs(range(plan.n_main - n_ct), plan.chunk,
+                       plan.user_block, main_layout, plan.n_windows, R > 1)
         if n_ct:
-            ub_t = plan.tail_user_block
-            U_pad_t = fused_mod.user_pad(U, ub_t)
-            w_i, v_u, v_i = fused_mod.extract_tables(
-                tab_u, tab_i, U, num_items, F)
-            tab_u, tab_i = fused_mod.extend_tables(
-                w_i, v_u, v_i, U_pad_t, I_pad)
-            if x_uf is not None:
-                x_uf = fused_mod.pad_feature_cols(m._x_uf_dev, U_pad_t)
-            run_epochs(range(plan.n_main - n_ct, plan.n_main),
-                       plan.tail_chunk, ub_t,
-                       layout_for(plan.tail_chunk, ub_t), plan.n_windows,
-                       False)
+            with observe.span("rankfm.fit.epochs.chunk_tail"):
+                ub_t = plan.tail_user_block
+                U_pad_t = fused_mod.user_pad(U, ub_t)
+                w_i, v_u, v_i = fused_mod.extract_tables(
+                    tab_u, tab_i, U, num_items, F)
+                tab_u, tab_i = fused_mod.extend_tables(
+                    w_i, v_u, v_i, U_pad_t, I_pad)
+                if x_uf is not None:
+                    x_uf = fused_mod.pad_feature_cols(m._x_uf_dev, U_pad_t)
+                run_epochs(range(plan.n_main - n_ct, plan.n_main),
+                           plan.tail_chunk, ub_t,
+                           layout_for(plan.tail_chunk, ub_t), plan.n_windows,
+                           False)
         tail = range(plan.n_main, plan.n_main + plan.n_tail)
         if plan.n_tail and plan.tail_windows:
             # wide-window tail: the closing epochs run the fused engine at
             # more windows a chunk, on the main layout
-            run_epochs(tail, plan.chunk, plan.user_block, main_layout,
-                       plan.tail_windows, R > 1)
+            with observe.span("rankfm.fit.epochs.wide_tail"):
+                run_epochs(tail, plan.chunk, plan.user_block, main_layout,
+                           plan.tail_windows, R > 1)
         pull_back()
         if plan.n_tail and not plan.tail_windows:
             # mixed schedule: the closing epochs run the candidate step,
@@ -986,53 +1007,56 @@ class RankFM:
         assert isinstance(epochs, int) and epochs >= 1, "[epochs] must be a positive integer"
         assert isinstance(verbose, bool), "[verbose] must be a boolean value"
 
-        t_fp0 = time.time()
-        if self.is_fit:
-            self._init_interactions(interactions, sample_weight)
-            self._init_features(user_features, item_features)
-            # the feature tables replicate on every placement: no gather
-            w = self._w_full if self._w_tp is None else self._w_tp
-            for side, x, vf in (("user", self.x_uf, w["v_uf"]),
-                                ("item", self.x_if, w["v_if"])):
-                assert x.shape[1] == vf.shape[0], (
-                    f"[{side}_features] column count changed since fit() "
-                    f"({x.shape[1]} vs {vf.shape[0]}): feature weights are "
-                    "frozen across fit_partial - call fit() to rebuild them")
-        else:
-            self._init_all(interactions, user_features, item_features, sample_weight)
-        # ingest = id mapping + CSR history + weight init, all host work
-        # (plus the copies to the device); _FitRun fills in the other phases
-        self.last_fit_timing_ = {"ingest_s": round(time.time() - t_fp0, 2)}
+        with observe.span("rankfm.fit"):
+            with observe.span("rankfm.fit.ingest"):
+                t_fp0 = time.time()
+                if self.is_fit:
+                    self._init_interactions(interactions, sample_weight)
+                    self._init_features(user_features, item_features)
+                    # the feature tables replicate on every placement: no gather
+                    w = self._w_full if self._w_tp is None else self._w_tp
+                    for side, x, vf in (("user", self.x_uf, w["v_uf"]),
+                                        ("item", self.x_if, w["v_if"])):
+                        assert x.shape[1] == vf.shape[0], (
+                            f"[{side}_features] column count changed since fit() "
+                            f"({x.shape[1]} vs {vf.shape[0]}): feature weights are "
+                            "frozen across fit_partial - call fit() to rebuild them")
+                else:
+                    self._init_all(interactions, user_features, item_features, sample_weight)
+                # ingest = id mapping + CSR history + weight init, all host work
+                # (plus the copies to the device); _FitRun fills in the other phases
+                self.last_fit_timing_ = {"ingest_s": round(time.time() - t_fp0, 2)}
+            with observe.span("rankfm.fit.plan"):
+                sw = self.sample_weight
+                U, I, F = len(self.user_idx), len(self.item_idx), self.factors
+                P, Q = self.x_uf.shape[1], self.x_if.shape[1]
+                spec = FitSpec(
+                    n=len(self.interactions),
+                    num_users=len(self.user_idx), num_items=len(self.item_idx),
+                    factors=self.factors, loss=self.loss,
+                    max_samples=self.max_samples, epochs=epochs,
+                    x_uf_any=bool(self.x_uf.any()), x_if_any=bool(self.x_if.any()),
+                    num_uf=self.x_uf.shape[1], num_if=self.x_if.shape[1],
+                    nnz_hist=len(self._ui_items),
+                    mean_sample_weight=float(np.mean(sw)) if len(sw) else 1.0,
+                    # the fused engine runs on every device the port supports: the
+                    # CUDA kernel on a GPU, its plain version on the CPU
+                    on_gpu=True, mesh=self.mesh,
+                    # the bytes of the six weight tensors, from their shapes
+                    table_bytes=4 * (I + Q + (U + I + P + Q) * F),
+                    batch_size=self.batch_size, train_step=self.train_step,
+                    use_fused=self.use_fused, n_windows=self.n_windows,
+                    tail_windows=self.tail_windows, sample_rounds=self.sample_rounds,
+                    shuffle_layouts=self.shuffle_layouts,
+                )
+                plan = plan_fit(spec)
+                self.last_fit_plan_ = plan
+                fit_run = _FitRun(self, plan, verbose)
+            fit_run.run()
 
-        sw = self.sample_weight
-        U, I, F = len(self.user_idx), len(self.item_idx), self.factors
-        P, Q = self.x_uf.shape[1], self.x_if.shape[1]
-        spec = FitSpec(
-            n=len(self.interactions),
-            num_users=len(self.user_idx), num_items=len(self.item_idx),
-            factors=self.factors, loss=self.loss,
-            max_samples=self.max_samples, epochs=epochs,
-            x_uf_any=bool(self.x_uf.any()), x_if_any=bool(self.x_if.any()),
-            num_uf=self.x_uf.shape[1], num_if=self.x_if.shape[1],
-            nnz_hist=len(self._ui_items),
-            mean_sample_weight=float(np.mean(sw)) if len(sw) else 1.0,
-            # the fused engine runs on every device the port supports: the
-            # CUDA kernel on a GPU, its plain version on the CPU
-            on_gpu=True, mesh=self.mesh,
-            # the bytes of the six weight tensors, from their shapes
-            table_bytes=4 * (I + Q + (U + I + P + Q) * F),
-            batch_size=self.batch_size, train_step=self.train_step,
-            use_fused=self.use_fused, n_windows=self.n_windows,
-            tail_windows=self.tail_windows, sample_rounds=self.sample_rounds,
-            shuffle_layouts=self.shuffle_layouts,
-        )
-        plan = plan_fit(spec)
-        self.last_fit_plan_ = plan
-        _FitRun(self, plan, verbose).run()
-
-        self._epoch_offset += epochs  # fresh streams on the next fit_partial
-        self._sim_cache = {}  # weights changed: cached latent reps are stale
-        self.is_fit = True
+            self._epoch_offset += epochs  # fresh streams on the next fit_partial
+            self._sim_cache = {}  # weights changed: cached latent reps are stale
+            self.is_fit = True
         return self
 
     def predict(self, pairs, cold_start='nan'):
@@ -1086,67 +1110,81 @@ class RankFM:
         assert getattr(users, '__iter__', False), "[users] must be an iterable (e.g. list, array, series)"
         assert self.is_fit, "you must fit the model prior to generating recommendations"
 
-        users_arr = pd.Series(users).values
-        user_idx = map_ids_float(users_arr, self.user_to_index)
-        known = ~np.isnan(user_idx)
-        known_idx = user_idx[known].astype(np.int64)
+        with observe.span("rankfm.recommend"):
+            with observe.span("rankfm.recommend.ids"):
+                users_arr = pd.Series(users).values
+                user_idx = map_ids_float(users_arr, self.user_to_index)
+                known = ~np.isnan(user_idx)
+                known_idx = user_idx[known].astype(np.int64)
 
-        # can't recommend more items than the catalog holds
-        n_items = min(int(n_items), len(self.item_idx))
-        use_bitmap_filter = (filter_previous and self.mesh is None
-                             and self._sampler == 'bitmap')
+            # can't recommend more items than the catalog holds
+            n_items = min(int(n_items), len(self.item_idx))
+            use_bitmap_filter = (filter_previous and self.mesh is None
+                                 and self._sampler == 'bitmap')
 
-        out = np.full((len(user_idx), n_items), np.nan, dtype=np.float64)
-        if len(known_idx):
             chunks = []
-            chunk_sz = _recommend_chunk(len(self.item_idx))
-            no_seen = torch.zeros(0, dtype=torch.int64, device=self.device)
-            if self.mesh is not None:
-                # this rank's item shard: the rows it owns after a
-                # table-parallel fit, else its slice of the whole tables
-                from rankfm_tpu_torch.parallel import retrieval
-                sharded = self._w_tp is not None
-                w = self._w_tp if sharded else self._w
-                i_mat, ib = retrieval.item_operands(
-                    self.mesh, w, self._x_if_dev, len(self.item_idx), sharded)
-            for s in range(0, len(known_idx), chunk_sz):
-                batch = known_idx[s:s + chunk_sz]
-                u_dev = torch.from_numpy(batch).to(self.device)
-                if use_bitmap_filter:
-                    top_items, _ = topk.topk_bitmap(
-                        self._w, self._x_uf_dev, self._x_if_dev, u_dev,
-                        n_items, self._ensure_bitmap())
+            if len(known_idx):
+                chunk_sz = _recommend_chunk(len(self.item_idx))
+                no_seen = torch.zeros(0, dtype=torch.int64, device=self.device)
+                if self.mesh is not None:
+                    # this rank's item shard: the rows it owns after a
+                    # table-parallel fit, else its slice of the whole tables
+                    from rankfm_tpu_torch.parallel import retrieval
+                    sharded = self._w_tp is not None
+                    w = self._w_tp if sharded else self._w
+                    i_mat, ib = retrieval.item_operands(
+                        self.mesh, w, self._x_if_dev, len(self.item_idx),
+                        sharded)
+                for s in range(0, len(known_idx), chunk_sz):
+                    with observe.span("rankfm.recommend.score"):
+                        batch = known_idx[s:s + chunk_sz]
+                        u_dev = torch.from_numpy(batch).to(self.device)
+                        if use_bitmap_filter:
+                            top_items, _ = topk.topk_bitmap(
+                                self._w, self._x_uf_dev, self._x_if_dev,
+                                u_dev, n_items, self._ensure_bitmap())
+                        else:
+                            rows = cols = no_seen
+                            if filter_previous:
+                                r, c = self._seen_pairs_for(batch)
+                                rows = torch.from_numpy(
+                                    r.astype(np.int64)).to(self.device)
+                                cols = torch.from_numpy(
+                                    c.astype(np.int64)).to(self.device)
+                            if self.mesh is not None:
+                                u_mat = retrieval.user_operands(
+                                    self.mesh, w, self._x_uf_dev, u_dev,
+                                    sharded)
+                                top_items, _ = retrieval.sharded_topk(
+                                    self.mesh, u_mat, i_mat, ib, rows, cols,
+                                    n_items)
+                            else:
+                                top_items, _ = topk.topk_for_users(
+                                    self._w, self._x_uf_dev, self._x_if_dev,
+                                    u_dev, n_items, rows, cols)
+                    with observe.span("rankfm.recommend.sync"):
+                        chunks.append(top_items.cpu().numpy())
+
+            with observe.span("rankfm.recommend.frame"):
+                out = np.full((len(user_idx), n_items), np.nan,
+                              dtype=np.float64)
+                if chunks:
+                    out[known] = np.concatenate(chunks, axis=0)
+                    # -1 = exhausted-catalog slot -> NaN, never a
+                    # wrapped-around id
+                    out[out < 0] = np.nan
+
+                rec_items = pd.DataFrame(
+                    remap_indices(self.index_to_item.values, out),
+                    index=pd.Index(users_arr),
+                )
+
+                if cold_start == 'nan':
+                    return rec_items
+                elif cold_start == 'drop':
+                    return rec_items.dropna(how='any')
                 else:
-                    rows = cols = no_seen
-                    if filter_previous:
-                        r, c = self._seen_pairs_for(batch)
-                        rows = torch.from_numpy(r.astype(np.int64)).to(self.device)
-                        cols = torch.from_numpy(c.astype(np.int64)).to(self.device)
-                    if self.mesh is not None:
-                        u_mat = retrieval.user_operands(
-                            self.mesh, w, self._x_uf_dev, u_dev, sharded)
-                        top_items, _ = retrieval.sharded_topk(
-                            self.mesh, u_mat, i_mat, ib, rows, cols, n_items)
-                    else:
-                        top_items, _ = topk.topk_for_users(
-                            self._w, self._x_uf_dev, self._x_if_dev, u_dev,
-                            n_items, rows, cols)
-                chunks.append(top_items.cpu().numpy())
-            out[known] = np.concatenate(chunks, axis=0)
-            # -1 = exhausted-catalog slot -> NaN, never a wrapped-around id
-            out[out < 0] = np.nan
-
-        rec_items = pd.DataFrame(
-            remap_indices(self.index_to_item.values, out),
-            index=pd.Index(users_arr),
-        )
-
-        if cold_start == 'nan':
-            return rec_items
-        elif cold_start == 'drop':
-            return rec_items.dropna(how='any')
-        else:
-            raise ValueError("param [cold_start] must be set to either 'nan' or 'drop'")
+                    raise ValueError("param [cold_start] must be set to either 'nan' or 'drop'")
 
     def _similar_rows(self, idx, factor_key, feat_factor_key, feats,
                       index_map, n):

@@ -38,6 +38,8 @@ from collections import Counter
 
 import torch
 
+from rankfm_tpu_torch.utils import observe
+
 # graphs captured and replays run, by "capture" / "replay"
 RUNS = Counter()
 
@@ -118,48 +120,55 @@ class EpochGraph:
     def capture(self):
         """Record one epoch (the epoch and eta buffers as they are when it
         replays)."""
-        dev = self.device
-        stream = _capture_stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        graph = (torch.cuda.CUDAGraph(keep_graph=True) if self.keep_graph
-                 else torch.cuda.CUDAGraph())
-        counters = _counters()
-        before = [Counter(c) for c in counters]
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        # no garbage collection while recording: an unreachable graph it
-        # destroyed would free device memory, which ends the capture
-        gc_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
-                ll = self.fn(self.tables, self.epoch, self.eta)
-        except Exception as e:
-            raise GraphCaptureError(
-                f"capturing the epoch ({self.name}) as a CUDA graph "
-                f"failed: {e}") from e
-        finally:
-            if gc_on:
-                gc.enable()
-        t1 = time.perf_counter()
-        if self.keep_graph:
-            graph.instantiate()
-        t2 = time.perf_counter()
-        # the wrappers counted what they recorded; the replays count it
-        self.launches = tuple(c - b for c, b in zip(counters, before))
-        for c, d in zip(counters, self.launches):
-            c.subtract(d)
-        self.graph, self.ll = graph, ll
-        self.scratch = _scratch_of(stream)
-        RUNS["capture"] += 1
-        self.stats = {"capture_s": t1 - t0,
-                      "instantiate_s": t2 - t1 if self.keep_graph else None,
-                      "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
-                      "launches": {"fused": dict(self.launches[0]),
-                                   "scatter": dict(self.launches[1])}}
+        with observe.span("rankfm.graph.capture"):
+            dev = self.device
+            stream = _capture_stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            graph = (torch.cuda.CUDAGraph(keep_graph=True) if self.keep_graph
+                     else torch.cuda.CUDAGraph())
+            counters = _counters()
+            before = [Counter(c) for c in counters]
+            with observe.span("rankfm.graph.drain"):
+                torch.cuda.synchronize(dev)
+            with observe.span("rankfm.graph.release"):
+                torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            with observe.span("rankfm.graph.record"):
+                t0 = time.perf_counter()
+                # no garbage collection while recording: an unreachable
+                # graph it destroyed would free device memory, which ends
+                # the capture
+                gc_on = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph, stream=stream,
+                                          capture_error_mode="thread_local"):
+                        ll = self.fn(self.tables, self.epoch, self.eta)
+                except Exception as e:
+                    raise GraphCaptureError(
+                        f"capturing the epoch ({self.name}) as a CUDA graph "
+                        f"failed: {e}") from e
+                finally:
+                    if gc_on:
+                        gc.enable()
+                t1 = time.perf_counter()
+                if self.keep_graph:
+                    graph.instantiate()
+                t2 = time.perf_counter()
+            # the wrappers counted what they recorded; the replays count it
+            self.launches = tuple(c - b for c, b in zip(counters, before))
+            for c, d in zip(counters, self.launches):
+                c.subtract(d)
+            self.graph, self.ll = graph, ll
+            self.scratch = _scratch_of(stream)
+            RUNS["capture"] += 1
+            pool = torch.cuda.memory_reserved(dev) - reserved
+            self.stats = {
+                "capture_s": t1 - t0,
+                "instantiate_s": t2 - t1 if self.keep_graph else None,
+                "pool_bytes": pool,
+                "launches": {"fused": dict(self.launches[0]),
+                             "scatter": dict(self.launches[1])}}
 
     def __call__(self, epoch, eta, tables=None):
         """Epoch ``epoch`` at learning rate ``eta`` (captured at the first
@@ -169,21 +178,22 @@ class EpochGraph:
         and back after."""
         if self.graph is None:
             self.capture()
-        other = tables is not None and tables is not self.tables
-        if other:
-            for k, t in tables.items():
-                if t is not None:
-                    self.tables[k].copy_(t)
-        self._set(epoch, eta)
-        self.graph.replay()
-        RUNS["replay"] += 1
-        for c, d in zip(_counters(), self.launches):
-            c.update(d)
-        if other:
-            for k, t in tables.items():
-                if t is not None:
-                    t.copy_(self.tables[k])
-        return self.ll.clone()
+        with observe.span("rankfm.graph.replay"):
+            other = tables is not None and tables is not self.tables
+            if other:
+                for k, t in tables.items():
+                    if t is not None:
+                        self.tables[k].copy_(t)
+            self._set(epoch, eta)
+            self.graph.replay()
+            RUNS["replay"] += 1
+            for c, d in zip(_counters(), self.launches):
+                c.update(d)
+            if other:
+                for k, t in tables.items():
+                    if t is not None:
+                        t.copy_(self.tables[k])
+            return self.ll.clone()
 
 
 def epoch_runner(fn, tables, device, mesh=None, name="epoch", cache=None,

@@ -1046,6 +1046,61 @@ def test_fit_partial_replays_the_graphs_of_the_call_before(cuda, engine):
     assert graph.RUNS["capture"] - before["capture"] == 1
 
 
+@pytest.mark.cuda
+def test_graph_captures_are_spans_of_their_fit(cuda):
+    """Under `torch.profiler`, a fit on the card (fused epochs, then a
+    candidate epoch: two layouts) opens one ``rankfm.graph.capture`` a
+    layout inside its engine's epochs, each holding its ``drain``,
+    ``release`` and ``record``, and one ``rankfm.graph.replay`` an epoch; a
+    ``fit_partial`` on the same data replays the graphs the fit kept and
+    opens no capture."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rankfm_tpu_torch import RankFM
+    from rankfm_tpu_torch.ops import graph
+
+    rng = np.random.default_rng(5)
+    train = np.stack([rng.integers(0, 30, 600), rng.integers(0, 50, 600)], 1)
+    model = RankFM(factors=4, loss="warp", max_samples=4, seed=99,
+                   device="cuda")
+
+    def traced(call):
+        before = dict(graph.RUNS)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call(train, epochs=6)
+        runs = {k: graph.RUNS[k] - before.get(k, 0) for k in graph.RUNS}
+        spans = []
+        for e in prof.events():
+            if (e.device_type == DeviceType.CPU
+                    and e.name.startswith("rankfm.")):
+                p = e.cpu_parent
+                while p is not None and not p.name.startswith("rankfm."):
+                    p = p.cpu_parent
+                spans.append((e.name, p.name if p else None))
+        return runs, spans
+
+    runs, spans = traced(model.fit)
+    plan = model.last_fit_plan_
+    assert plan.fused and plan.n_tail == 1 and not plan.tail_windows
+    captures = [p for n, p in spans if n == "rankfm.graph.capture"]
+    assert runs["capture"] == len(captures) == 2
+    assert sorted(captures) == ["rankfm.fit.epochs.candidate",
+                                "rankfm.fit.epochs.fused"]
+    for child in ("drain", "release", "record"):
+        assert [p for n, p in spans if n == f"rankfm.graph.{child}"] == [
+            "rankfm.graph.capture"] * 2
+    assert runs["replay"] == 6
+    assert sum(n == "rankfm.graph.replay" for n, _ in spans) == 6
+
+    runs, spans = traced(model.fit_partial)
+    assert runs.get("capture", 0) == 0 and runs["replay"] == 6
+    assert {n for n, _ in spans if n.startswith("rankfm.graph.")} == {
+        "rankfm.graph.replay"}
+    assert sum(n == "rankfm.graph.replay" for n, _ in spans) == 6
+
+
 COLD_FIT = """
 import sys, numpy as np, torch
 sys.path.insert(0, {root!r})
