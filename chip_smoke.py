@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py [--parent DIR | --only-updates | --only-host-half
                            | --only-mesh | --only-quality | --only-repro
-                           | --only-graphs | --profiler-windows N]
+                           | --only-graphs | --only-topk
+                           | --profiler-windows N]
 
 ``--only-updates`` stops after phase 4, ``--only-host-half`` runs phase 10
 alone, ``--only-mesh`` phase 11 after the single-device fit of phase 5,
 ``--only-quality`` phase 12 alone, ``--only-repro`` phase 13 alone,
-``--only-graphs`` phase 14 alone,
+``--only-graphs`` phase 14 alone, ``--only-topk`` phase 15 alone,
 ``--profiler-windows N`` counts the ``torch.profiler`` traces that
 come back without device time in N short windows with and without the
 idle margin the script leaves in each; none prints a result line.
@@ -176,7 +177,15 @@ result line):
    a layout's graph costs less than its eager epochs. A replay counts the
    launches its capture recorded; the fits of phases 5-9 must each
    capture one graph per layout and replay one per epoch, and phase 10's
-   ``fit_partial`` on the same frame must capture none.
+   ``fit_partial`` on the same frame must capture none;
+15. the filtered top-N kernel (`ops.topk.topk_select`, three launches) at
+   the serve cells' request shapes (1,000 users over 33,362 items at F 50
+   with 21 one-hot item features; over 3,706 items at F 20), top 10
+   through the seen-item bitmap: against its plain version on the card
+   (every slot's score gap within 1e-4, no seen item, two calls equal to
+   the byte), then its time, host enqueue, device time and launches per
+   call, its bound (f32 FMA), the plain version's time and, as a yardstick
+   the port never calls, ``matmul`` + ``masked_fill`` + ``torch.topk``.
 
 Each path runs with the launch counts set to 0 just before it and reads
 them just after (on each rank, on the mesh); the kernels' JSON adds the
@@ -2664,6 +2673,139 @@ def print_parent_table(parents, b1, times, candidate, window, fused,
               + f" s ({CARD})", flush=True)
 
 
+# phase 15: the serve cells' request shapes (users, catalog, F, item feature
+# columns, share of the catalog a user has seen), 10 slots
+TOPK_SHAPES = (("instacart", 1000, IC_USERS, IC_ITEMS, 50, IC_DEPTS, 0.0025),
+               ("ml1m", 1000, N_USERS, N_ITEMS, 20, 0, 0.034))
+TOPK_K = 10
+TOPK_CALLS = 50                # back-to-back calls a timing
+TOPK_KEYS = ("ms", "device_ms", "enqueue_us", "plain_ms", "library_ms",
+             "bound_ms", "bound_by", "launches_per_call")
+
+
+def topk_inputs(torch, dev, rng, B, U, I, F, n_if, seen):
+    """Weights of a fitted model's spread (the serve cells' draw: factors
+    0.3, biases 1.0), one-hot item features over ``n_if`` columns (a zero
+    column when 0), zero user features, a bitmap in which each user has
+    seen ~``seen`` of the catalog, and ``B`` distinct users."""
+    Q = max(n_if, 1)
+    x_if = np.zeros((I, Q), np.float32)
+    if n_if:
+        x_if[np.arange(I), rng.integers(0, n_if, I)] = 1
+    w = {"w_i": rng.normal(0, 1.0, I), "w_if": rng.normal(0, 1.0, Q),
+         "v_u": rng.normal(0, 0.3, (U, F)), "v_i": rng.normal(0, 0.3, (I, F)),
+         "v_uf": np.zeros((1, F)),
+         "v_if": rng.normal(0, 0.3, (Q, F)) if n_if else np.zeros((Q, F))}
+    w = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+         for k, v in w.items()}
+    n_seen = int(seen * I)
+    bm = np.zeros((U, (I + 31) // 32), np.uint32)
+    uu = np.repeat(np.arange(U), n_seen)
+    ii = rng.integers(0, I, U * n_seen)
+    np.bitwise_or.at(bm, (uu, ii >> 5), np.uint32(1) << (ii & 31).astype(
+        np.uint32))
+    users = rng.choice(U, B, replace=False).astype(np.int64)
+    return (w, torch.zeros((U, 1), device=dev), torch.from_numpy(x_if).to(dev),
+            torch.from_numpy(users).to(dev),
+            torch.from_numpy(bm.view(np.int32)).to(dev))
+
+
+def topk_phase(torch, dev):
+    """The filtered top-N kernel (`topk.topk_select`) at the serve cells'
+    request shapes: against its plain version on the card (each slot's
+    score gap below the plain lists, the share of slots listing another
+    item, the same call twice equal to the byte), then its time (CUDA
+    events over back-to-back calls), its host enqueue per call, its device
+    time and launches per call under ``torch.profiler``, its roofline bound
+    (f32 FMA on the CUDA cores), the plain version's time, and as a
+    yardstick only the library chain ``matmul`` + ``masked_fill`` +
+    ``torch.topk`` on operands and a ``[B, I]`` seen mask built before the
+    clock starts. Returns ``{shape: record}``."""
+    from rankfm_tpu_torch.ops import scoring, topk
+
+    rng = np.random.default_rng(SEED + 15)
+    out = {}
+    for name, B, U, I, F, n_if, seen in TOPK_SHAPES:
+        w, x_uf, x_if, u, bm = topk_inputs(torch, dev, rng, B, U, I, F, n_if,
+                                           seen)
+        k = TOPK_K
+
+        def kernel():
+            return topk.topk_select(w, x_uf, x_if, u, k, bm)
+
+        def plain():
+            return topk.topk_bitmap_plain(w, x_uf, x_if, u, k, bm)
+
+        items, scores = kernel()
+        again = kernel()
+        p_items, p_scores = plain()
+        torch.cuda.synchronize()
+        check(all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+                  for a, b in zip((items, scores), again)),
+              f"phase 15 {name}: two calls differ")
+        full = scoring.score_all_items(w, x_uf, x_if, u)
+        col = torch.arange(I, device=dev)
+        seen_mask = ((bm[u][:, col >> 5] >> (col & 31)) & 1).bool()
+        full = full.masked_fill(seen_mask, float("-inf"))
+        own = full.gather(1, items.clamp(min=0).long())
+        check(bool((items >= 0).all()), f"phase 15 {name}: a -1 slot")
+        check(bool(torch.isfinite(own).all()),
+              f"phase 15 {name}: a seen item was listed")
+        gap = float((p_scores - own).max())
+        err = float((own - scores).abs().max())
+        differ = float((items != p_items).float().mean())
+        check(gap <= 1e-4 and err <= 1e-4,
+              f"phase 15 {name}: score gap {gap:.3g}, own-score error "
+              f"{err:.3g}")
+        ms = cuda_ms(torch, kernel, TOPK_CALLS)
+        plain_ms = cuda_ms(torch, plain, TOPK_CALLS)
+        u_mat = torch.cat([w["v_u"][u] + x_uf[u] @ w["v_uf"], w["v_u"][u]], 1)
+        i_mat = torch.cat([w["v_i"], x_if @ w["v_if"]], 1)
+        ib = w["w_i"] + x_if @ w["w_if"]
+        library_ms = cuda_ms(torch, lambda: torch.topk(
+            (u_mat @ i_mat.T + ib).masked_fill_(seen_mask, float("-inf")),
+            k, dim=1), TOPK_CALLS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TOPK_CALLS):
+            kernel()
+        enqueue_us = 1e6 * (time.perf_counter() - t0) / TOPK_CALLS
+        before = sum(topk.LAUNCHES.values())
+        _, busy, rows = profile_call(
+            torch, lambda: [kernel() for _ in range(TOPK_CALLS)], top=None)
+        check(busy is not None, "torch.profiler traced no device time")
+        check(sum(topk.LAUNCHES.values()) - before == TOPK_CALLS,
+              f"phase 15 {name}: launch count")
+        # each kernel's mean over its own traced records: in a long process
+        # the tracer can drop some (the share kept is printed)
+        launches = len(rows)
+        kept = min(r[2] for r in rows) / TOPK_CALLS
+        ops = 2 * B * I * 2 * F
+        nbytes = 4 * (I * (2 * F + 1) + B * 2 * F + B * ((I + 31) // 32)
+                      + 2 * B * k)
+        bound_ms, bound_by = bound(ops, nbytes)
+        device_ms = sum(t / c for _, t, c in rows)
+        rec = {"ms": ms, "device_ms": device_ms, "enqueue_us": enqueue_us,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "launches_per_call": launches, "traced_share": kept,
+               "max_gap": gap,
+               "slots_differ": differ,
+               "by_kernel": [(n, t / c, c / TOPK_CALLS) for n, t, c in rows]}
+        print(f"top-{k} {name} (B {B}, I {I}, F {F}): kernel {ms:.4f} ms "
+              f"(device {device_ms:.4f} ms, {launches} launches, traced "
+              f"{100 * kept:.0f}% of them, enqueue "
+              f"{enqueue_us:.1f} us), bound {bound_ms:.4f} ms by {bound_by} "
+              f"({100 * bound_ms / device_ms:.1f}% reached), plain "
+              f"{plain_ms:.4f} ms, library chain {library_ms:.4f} ms; gap "
+              f"{gap:.3g}, slots differing {differ:.2e} ({CARD})", flush=True)
+        for n, t, c in rec["by_kernel"]:
+            print(f"  {n}: {t:.4f} ms a launch, traced {100 * c:.0f}%",
+                  flush=True)
+        out[name] = rec
+    return out
+
+
 def run(args):
     import torch
 
@@ -2748,6 +2890,9 @@ def run(args):
         graph_phase(torch, RankFM, fused, scatter, training, train,
                     instacart_data())
         return 0
+    if args.only_topk:
+        topk_phase(torch, dev)
+        return 0
     if args.times_of:
         # phases 3, 4, 5, 6 and 9 of another tree, through what both trees
         # have
@@ -2829,6 +2974,9 @@ def run(args):
     counts, _ = graph_phase(torch, RankFM, fused, scatter, training, train,
                             ic_data)
     paths.append(counts)
+
+    # 15. the filtered top-N kernel at the serve cells' request shapes
+    tk = topk_phase(torch, dev)
     if args.parent:
         parents.append(tree_times(args.parent))
         print_parent_table(parents, b1_times, up_times, tm_ic["candidate"],
@@ -2839,8 +2987,9 @@ def run(args):
 
     check("jax" not in sys.modules, "jax was imported")
     print(f"total {time.time() - t_start:.1f} s", flush=True)
-    # no `library_ms`: no one PyTorch call computes a whole fused train step,
-    # nor a scatter-sum with per-touch decay (`index_add_` has no decay)
+    # no `library_ms` for B1-B3: no one PyTorch call computes a whole fused
+    # train step, nor a scatter-sum with per-touch decay (`index_add_` has
+    # no decay)
     kp, kp_ic, kpf_ic = (kps[k] for k in ("ml1m", "instacart",
                                           "instacart featured"))
     kpf_ml = [kps[k] for k in ("ml1m featured", "ml1m user features",
@@ -2876,6 +3025,13 @@ def run(args):
          "mesh_launches": mesh_counts["table_update_dense"],
          "max_abs_err": up["dense"]["max_abs_err"],
          **{k: up["dense"][k] for k in UPDATE_KEYS}, "library_ms": None},
+        # `library_ms`: matmul + masked_fill + torch.topk, a yardstick the
+        # port never calls on the card
+        {"name": "topk_select", "route": "cuda",
+         "source": "rankfm_tpu_torch/csrc/topk_select.cu", "replaces": None,
+         "max_gap": max(r["max_gap"] for r in tk.values()),
+         **{k: tk["instacart"][k] for k in TOPK_KEYS},
+         "ml1m": {k: tk["ml1m"][k] for k in TOPK_KEYS}},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
@@ -2910,6 +3066,8 @@ def main():
                     help="phases 1, 2 and 13 only; prints no result line")
     ap.add_argument("--only-graphs", action="store_true",
                     help="phases 1, 2 and 14 only; prints no result line")
+    ap.add_argument("--only-topk", action="store_true",
+                    help="phases 1, 2 and 15 only; prints no result line")
     ap.add_argument("--deterministic-fits", action="store_true",
                     help="one fit of each engine under "
                          "torch.use_deterministic_algorithms(True) (phase 13 "

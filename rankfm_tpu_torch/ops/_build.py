@@ -22,12 +22,14 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "fused_chunk.cu",
-           _PKG / "csrc" / "table_update.cu")
+           _PKG / "csrc" / "table_update.cu",
+           _PKG / "csrc" / "topk_select.cu")
 # library name -> (source, its own nvcc flags)
 LIBS = {f"fused_chunk_{uf}{it}": (SOURCES[0], (f"-DRFM_UF={uf}",
                                                f"-DRFM_IF={it}"))
         for uf in (0, 1) for it in (0, 1)}
 LIBS["table_update"] = (SOURCES[1], ())
+LIBS["topk_select"] = (SOURCES[2], ())
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,6 +57,12 @@ _ARGTYPES = {
                                     _P, _P],
         # tab, bias, N, F, idx, upd, B2, acc, scal, stream
         "rfm_table_update_dense": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+    },
+    "topk_select": {
+        # v_u, v_i, w_i, v_uf, v_if, w_if, x_uf, x_if, u_idx, bitmap, W, U,
+        # I, F, P, Q, B, k, S, scratch, out_i, out_s, stream
+        "rfm_topk_select": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     },
 }
 
