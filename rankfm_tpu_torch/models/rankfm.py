@@ -73,6 +73,17 @@ def _recommend_chunk(num_items):
     return int(min(4096, max(256, 2**28 // max(num_items, 1))))
 
 
+def pick_sampler(neg_sampler, num_users, num_items):
+    """The membership structure the samplers (and retrieval's seen-item
+    filter) read: ``neg_sampler`` unless 'auto', else the packed bitmap
+    ('bitmap') when it fits in 512 MiB, else the binary search of the
+    history CSR ('bsearch'; retrieval then scatters the seen pairs)."""
+    if neg_sampler != 'auto':
+        return neg_sampler
+    words = (num_items + 31) // 32
+    return 'bitmap' if num_users * words * 4 <= 512 * 2**20 else 'bsearch'
+
+
 def _ll_guard(ll, tensors):
     """The epoch log-likelihood, or NaN when ANY table holds a non-finite
     value. Non-finite weights stay non-finite under the SGD update, so a
@@ -131,7 +142,7 @@ class _FitRun:
             h.update(np.ascontiguousarray(x).tobytes())
         return h.digest()
 
-    def epoch_runner(self, fn, tables, name, key, deps):
+    def epoch_runner(self, fn, tables, name, key, deps, batches=None):
         """`graph_mod.epoch_runner` of one layout: on one CUDA device a
         graph, kept on the model for the next call (`fit_partial` loops)
         under ``key`` (the layout's own values: plan fields, shapes; the
@@ -139,7 +150,8 @@ class _FitRun:
         ``deps`` (the model's history tensors the epoch reads, by
         identity). Without the ingest hash nothing is kept. A key the call
         before did not capture drops that call's graphs, and their pools,
-        first."""
+        first. ``batches``: the epoch's ``(rows, step, count)``, for a
+        graph of one batch (`graph_mod.BatchGraph`)."""
         m = self.m
         if (m.device.type != 'cuda' or m.mesh is not None
                 or m._ingest_hash is None):
@@ -155,7 +167,7 @@ class _FitRun:
             else:
                 self.kept.clear()
         return graph_mod.epoch_runner(fn, tables, m.device, m.mesh, name,
-                                      m._epoch_graphs, key, deps)
+                                      m._epoch_graphs, key, deps, batches)
 
     def eta(self, epoch):
         m = self.m
@@ -267,11 +279,13 @@ class _FitRun:
             if plan.placement == 'tp':
                 self.run_tp(epochs, step_kind, u, i, sw, mrl)
                 return
-            if step_kind == 'candidate':
-                hist = {"offsets": m._offsets_dev, "flat": m._flat_items_dev,
-                        "bitmap": m._ensure_bitmap()}
-            else:
-                hist = m._ensure_packed_hist()
+            with observe.span("rankfm.fit.hist"):
+                if step_kind == 'candidate':
+                    hist = {"offsets": m._offsets_dev,
+                            "flat": m._flat_items_dev,
+                            "bitmap": m._ensure_bitmap()}
+                else:
+                    hist = m._ensure_packed_hist()
             if m.mesh is not None:
                 # data-parallel: replicated tables, one delta all-reduce per
                 # sync group (the JAX DP path's step, `parallel.train`)
@@ -294,6 +308,7 @@ class _FitRun:
                         num_items, plan.max_samples, self.x_uf_any,
                         self.x_if_any)
                 epoch_fn = training.epoch_body(step, bs_x)
+                make_rows, batch = training.epoch_parts(step, bs_x)
             # the steps update the item and user tables in place: train copies,
             # so arrays handed out before this fit (`_weights`, `v_i`, ...; on
             # the CPU these are views) keep their values. The copies are the
@@ -314,12 +329,24 @@ class _FitRun:
                         t[k].copy_(v)
                 return ll
 
-            # one device: every epoch replays one CUDA graph; else eager
+            def train_batch(t, rows, eta):
+                t_new, ll = batch(t, x_uf, x_if, hist, rows, eta, alpha,
+                                  beta)
+                for k, v in t_new.items():
+                    if v is not t[k]:
+                        t[k].copy_(v)
+                return ll
+
+            # one device: every epoch replays the CUDA graph of one batch
+            # once a batch; else eager
+            batches = None if m.mesh is not None else (
+                lambda epoch: make_rows(u, i, sw, n, seed, epoch),
+                train_batch, n_pad // bs_x)
             deps = list(hist.values()) if isinstance(hist, dict) else [hist]
             run = self.epoch_runner(
                 train, w, step_kind,
                 (num_items, plan.max_samples, plan.rounds, m._sampler,
-                 plan.post_reject, mrl, bs_x, n, n_pad), deps)
+                 plan.post_reject, mrl, bs_x, n, n_pad), deps, batches)
             for epoch in epochs:
                 t0 = time.time()
                 ll = run(self.rng_off + epoch, self.eta(epoch))
@@ -341,11 +368,13 @@ class _FitRun:
         w_tp, xu_tp, xi_tp = tp_mod.pad_and_place(
             m.mesh, m.gather_weights(), m._x_uf_dev, m._x_if_dev)
         m._w_tp, m._w_full = w_tp, None
-        if step_kind == 'window':
-            hist = {"packed": tp_mod.pad_packed_hist(
-                m.mesh, m._ensure_packed_hist(), self.U)}
-        else:
-            hist = {"offsets": m._offsets_dev, "flat": m._flat_items_dev}
+        with observe.span("rankfm.fit.hist"):
+            if step_kind == 'window':
+                hist = {"packed": tp_mod.pad_packed_hist(
+                    m.mesh, m._ensure_packed_hist(), self.U)}
+            else:
+                hist = {"offsets": m._offsets_dev,
+                        "flat": m._flat_items_dev}
         for epoch in epochs:
             t0 = time.time()
             w_tp, ll = fn(w_tp, xu_tp, xi_tp, hist, u, i, sw, self.n,
@@ -842,21 +871,16 @@ class RankFM:
         if unchanged:
             return
         self._ui_offsets, self._ui_items = offsets, items
-        self._offsets_dev = torch.from_numpy(offsets).to(self.device)
-        self._flat_items_dev = torch.from_numpy(items).to(self.device)
+        with observe.span("rankfm.fit.hist"):
+            # the device CSR that the binary-search sampler reads
+            self._offsets_dev = torch.from_numpy(offsets).to(self.device)
+            self._flat_items_dev = torch.from_numpy(items).to(self.device)
         self._packed_hist = None  # history changed: rebuild lazily
         self._rec_cache = None
         self._user_items_view = None
 
-        # retrieval filters seen items through the packed bitmap when it
-        # fits in ~512 MB, else by scattering the seen pairs
-        U, I = len(self.user_idx), len(self.item_idx)
-        words = (I + 31) // 32
-        if self.neg_sampler == 'bitmap' or (
-                self.neg_sampler == 'auto' and U * words * 4 <= 512 * 2**20):
-            self._sampler = 'bitmap'
-        else:
-            self._sampler = 'bsearch'
+        self._sampler = pick_sampler(self.neg_sampler, len(self.user_idx),
+                                     len(self.item_idx))
         self._bitmap_dev = None
 
     def _raw_id_columns(self, interactions):

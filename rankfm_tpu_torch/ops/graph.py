@@ -22,6 +22,13 @@ graph's pool, zeroed by the graph) while the capture records. A capture
 that fails raises with the CUDA error: nothing falls back to the eager
 epoch.
 
+An epoch of the XLA steps, hundreds of batches of a few hundred launches
+each, is captured as one batch instead (`BatchGraph`): the epoch's rows are
+made eagerly into buffers the graph reads at a device batch counter, and
+the batch's graph is replayed once per batch. Its capture records one batch
+where `EpochGraph` would record them all, which at ~500 batches took
+seconds of the host a fit.
+
 `epoch_runner` applies the graph to CUDA tables of a single device only;
 the CPU and the mesh (whose collectives cannot be captured over gloo) run
 the same epoch function eagerly. Given a ``cache`` and a ``key``, a graph
@@ -65,8 +72,8 @@ def _capture_stream(device):
 
 
 def _counters():
-    from rankfm_tpu_torch.ops import fused, scatter
-    return fused.LAUNCHES, scatter.LAUNCHES
+    from rankfm_tpu_torch.ops import fused, scatter, training
+    return fused.LAUNCHES, scatter.LAUNCHES, training.STEPS
 
 
 def _scratch_of(stream):
@@ -100,7 +107,7 @@ class EpochGraph:
     instantiation too), ``instantiate_s`` (None without ``keep_graph``),
     ``pool_bytes`` (device memory the capture reserved: the graph's
     private pool) and ``launches`` (the kernel launches of one replay, by
-    wrapper and key)."""
+    wrapper and key, and its batch steps, `training.STEPS`)."""
 
     def __init__(self, fn, tables, device, name="epoch", keep_graph=False):
         self.fn, self.tables, self.name = fn, tables, name
@@ -110,7 +117,7 @@ class EpochGraph:
         self.eta = torch.zeros((), dtype=torch.float32, device=self.device)
         self.graph = self.ll = None
         self.scratch = []
-        self.launches = (Counter(), Counter())
+        self.launches = (Counter(), Counter(), Counter())
         self.stats = {}
 
     def _set(self, epoch, eta):
@@ -168,7 +175,8 @@ class EpochGraph:
                 "instantiate_s": t2 - t1 if self.keep_graph else None,
                 "pool_bytes": pool,
                 "launches": {"fused": dict(self.launches[0]),
-                             "scatter": dict(self.launches[1])}}
+                             "scatter": dict(self.launches[1]),
+                             "steps": dict(self.launches[2])}}
 
     def __call__(self, epoch, eta, tables=None):
         """Epoch ``epoch`` at learning rate ``eta`` (captured at the first
@@ -196,12 +204,68 @@ class EpochGraph:
             return self.ll.clone()
 
 
+class BatchGraph(EpochGraph):
+    """An epoch of ``count`` batches, one batch captured and replayed per
+    batch: ``rows(epoch) -> [tensor [count, ...], ...]`` makes the epoch's
+    batches eagerly (the first call's tensors become the graph's static
+    buffers, later calls are copied into them), and ``step(tables, rows,
+    eta) -> ll`` trains one batch, ``rows`` holding each buffer's entry at
+    the graph's batch counter. The capture, the spans, `RUNS` (one
+    replay an epoch) and the copies of a caller's tables are as in
+    `EpochGraph`; an epoch's replay counts its capture's launches
+    ``count`` times."""
+
+    def __init__(self, rows, step, count, tables, device, name="epoch"):
+        super().__init__(self._batch, tables, device, name)
+        self.rows_fn, self.step, self.count = rows, step, count
+        self.rows = None
+        self.t = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.ll_sum = torch.zeros((), dtype=torch.float32,
+                                  device=self.device)
+
+    def _batch(self, tables, epoch, eta):
+        ll = self.step(tables, [r.index_select(0, self.t)[0]
+                                for r in self.rows], eta)
+        self.ll_sum.add_(ll)
+        self.t.add_(1)
+        return self.ll_sum
+
+    def __call__(self, epoch, eta, tables=None):
+        self._set(epoch, eta)
+        fresh = self.graph is None
+        if fresh:
+            self.rows = list(self.rows_fn(self.epoch))
+            self.capture()
+        with observe.span("rankfm.graph.replay"):
+            other = tables is not None and tables is not self.tables
+            if other:
+                for k, t in tables.items():
+                    if t is not None:
+                        self.tables[k].copy_(t)
+            if not fresh:
+                for r, new in zip(self.rows, self.rows_fn(self.epoch)):
+                    r.copy_(new)
+            self.t.zero_()
+            self.ll_sum.zero_()
+            for _ in range(self.count):
+                self.graph.replay()
+            RUNS["replay"] += 1
+            for c, d in zip(_counters(), self.launches):
+                c.update({k: v * self.count for k, v in d.items()})
+            if other:
+                for k, t in tables.items():
+                    if t is not None:
+                        t.copy_(self.tables[k])
+            return self.ll_sum.clone()
+
+
 def epoch_runner(fn, tables, device, mesh=None, name="epoch", cache=None,
-                 key=None, deps=()):
+                 key=None, deps=(), batches=None):
     """``run(epoch, eta) -> ll``: an `EpochGraph` of ``fn`` when the tables
     are CUDA tensors of a single device (``mesh`` None), else ``fn``
     called eagerly with the same arguments (``epoch`` and ``eta`` as
-    numbers).
+    numbers). ``batches``: ``(rows, step, count)`` of the same epoch, for
+    a `BatchGraph` in place of the `EpochGraph`.
 
     ``cache`` (a dict) and ``key`` (hashable; None for no reuse) keep the
     graph for a later call, which replays it with its own tables. ``key``
@@ -212,10 +276,16 @@ def epoch_runner(fn, tables, device, mesh=None, name="epoch", cache=None,
     device = torch.device(device)
     if device.type != "cuda" or mesh is not None:
         return lambda epoch, eta: fn(tables, epoch, eta)
+
+    def make():
+        if batches is None:
+            return EpochGraph(fn, tables, device, name)
+        return BatchGraph(*batches, tables, device, name)
+
     if cache is None or key is None:
-        return EpochGraph(fn, tables, device, name)
+        return make()
     g = cache.get(key)
     if g is None:
-        g = cache[key] = EpochGraph(fn, tables, device, name)
+        g = cache[key] = make()
         g.deps = tuple(deps)
     return lambda epoch, eta: g(epoch, eta, tables)

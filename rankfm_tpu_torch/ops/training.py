@@ -30,6 +30,7 @@ operands to bf16.
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import Callable, NamedTuple
 
 import torch
@@ -43,6 +44,11 @@ from rankfm_tpu_torch.ops.scatter import (apply_table_update, decay_c,
                                           decay_rows, device_scalar)
 
 MARGIN = 1.0
+# batch steps run, keyed (step kind, sampler, post-hoc rejection, scoring):
+# one count per call of a step's ``apply``; a graph replay counts what its
+# capture recorded (`ops.graph`). Scoring is 'dense' (the whole catalog or
+# the window blocks in one product) or 'gathered' (the candidates' rows)
+STEPS = Counter()
 # the JAX steps draw their window uniforms from [U01_MIN, 1)
 U01_MIN = 1e-7
 
@@ -298,13 +304,16 @@ def make_train_step(num_items, max_samples, x_uf_any, x_if_any,
 
     def apply(w, x_uf, x_if, hist, u, i, sw, valid, eta, alpha, beta, draws):
         B = u.shape[0]
+        gathered = B * num_items > 2**28
+        STEPS["candidate", sampler, post_reject,
+              "gathered" if gathered else "dense"] += 1
         cands, cand_ok = candidates(hist, u, num_items, M, draws, sampler,
                                     post_reject, max_row_len)
         cands_l = cands.long()
 
         v_u_b, x_uf_b, user_rep_b, u_mat, i_mat, item_bias = _user_and_items(
             w, x_uf, x_if, u, x_uf_any, x_if_any)
-        if B * num_items <= 2**28:
+        if not gathered:
             # small catalog: one [B, 2F] x [2F, I] product scores everything
             scores_all = u_mat @ i_mat.T + item_bias[None, :]
             ut_ui = scores_all.gather(1, i[:, None])[:, 0]
@@ -407,6 +416,7 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
     def apply(w, x_uf, x_if, packed_hist, u, i, sw, valid, eta, alpha, beta,
               draws):
         blkg, u01, r1 = draws
+        STEPS["window", "packed", False, "dense"] += 1
         B = u.shape[0]
         G = blkg.shape[0]
         Bg = B // G
@@ -476,6 +486,31 @@ def epoch_draws(seed, epoch, n_pad, nb, device, rank=0):
     return perm, _philox.fold(rkey, t)
 
 
+def epoch_parts(step, batch_size):
+    """An XLA epoch in two parts, for a CUDA graph of one batch
+    (`ops.graph.BatchGraph`): ``rows(u, i, sw, n_real, seed, epoch)`` makes
+    the epoch's batches, ``[ub, ib, swb, valid]`` each ``[nb,
+    batch_size]`` and the batch keys ``[nb]`` (`epoch_draws`), and
+    ``batch(w, x_uf, x_if, hist, rows, eta, alpha, beta) -> (w, ll)`` runs
+    the step on one batch's entries of them. `epoch_body` is the two in
+    order."""
+
+    def rows(u, i, sw, n_real, seed, epoch):
+        n_pad = u.shape[0]
+        nb = n_pad // batch_size
+        perm, keys = epoch_draws(seed, epoch, n_pad, nb, u.device)
+        valid = (perm < n_real).reshape(nb, batch_size)
+        return [a[perm].reshape(nb, batch_size) for a in (u, i, sw)] + [
+            valid, keys]
+
+    def batch(w, x_uf, x_if, hist, rows, eta, alpha, beta):
+        ub, ib, swb, valid, key = rows
+        return step.apply(w, x_uf, x_if, hist, ub, ib, swb, valid, eta,
+                          alpha, beta, step.draw(key, batch_size))
+
+    return rows, batch
+
+
 def epoch_body(step, batch_size):
     """One epoch of an XLA step (`rankfm_tpu/ops/training.py:556-591`): one
     permutation of the padded rows, the validity mask of the pad rows
@@ -488,20 +523,16 @@ def epoch_body(step, batch_size):
     beta, seed, epoch) -> (w, ll)``; ``u``/``i`` are int64 and ``sw`` f32
     padded columns on the device. The item and user tables of ``w`` are
     updated in place; the returned dict holds new feature tables."""
+    make_rows, batch = epoch_parts(step, batch_size)
 
     def epoch_fn(w, x_uf, x_if, hist, u, i, sw, n_real, eta, alpha, beta,
                  seed, epoch):
-        n_pad = u.shape[0]
-        nb = n_pad // batch_size
-        perm, keys = epoch_draws(seed, epoch, n_pad, nb, u.device)
+        rows = make_rows(u, i, sw, n_real, seed, epoch)
         eta = device_scalar(eta, torch.float32, u.device)
-        valid = (perm < n_real).reshape(nb, batch_size)
-        ub, ib, swb = (a[perm].reshape(nb, batch_size) for a in (u, i, sw))
         ll = torch.zeros((), dtype=torch.float32, device=u.device)
-        for t in range(nb):
-            w, ll_t = step.apply(w, x_uf, x_if, hist, ub[t], ib[t], swb[t],
-                                 valid[t], eta, alpha, beta,
-                                 step.draw(keys[t], batch_size))
+        for t in range(rows[0].shape[0]):
+            w, ll_t = batch(w, x_uf, x_if, hist, [r[t] for r in rows], eta,
+                            alpha, beta)
             ll = ll + ll_t
         return w, ll
 

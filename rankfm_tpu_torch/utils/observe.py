@@ -16,11 +16,14 @@ Perfetto (ui.perfetto.dev). Each ``rankfm.fit`` or ``rankfm.recommend``
 range holds the ranges of its phases, and those the kernels they launched:
 
 * ``rankfm.fit``: ``.ingest`` (id maps, interactions, history, weight
-  init, the copies to the device), ``.plan`` (the planner), ``.prep``
+  init, the copies to the device; inside it ``.hist``, the device copy of
+  the history CSR), ``.plan`` (the planner), ``.prep``
   (everything before the first epoch of a fused fit: ``.hist_pack``, and a
   ``.layout`` for each record layout built, not found in the cache),
   ``.epochs.<engine>`` for each engine's run of epochs (``fused``,
-  ``chunk_tail``, ``wide_tail``, ``candidate``, ``window``, ``tp``),
+  ``chunk_tail``, ``wide_tail``, ``candidate``, ``window``, ``tp``; an
+  XLA engine's first opens ``.hist``, where it builds the bitmap or the
+  packed history its sampler reads),
   ``.pull`` (the trained tables back into the model) and ``.finish``
   (reading every epoch's log-likelihood and the closing synchronisation);
 * inside an engine's epochs on the card, ``rankfm.graph.capture`` (one per

@@ -903,9 +903,11 @@ def _graph_case(features=False):
     return train, kw
 
 
-def _engine_epoch(model, kind):
+def _engine_epoch(model, kind, batches=False):
     """``(fn, tables)`` of one epoch of the fitted model's fused engine
-    (main layout) or of its candidate step, as `RankFM` runs them."""
+    (main layout) or of its candidate step, as `RankFM` runs them; with
+    ``batches`` (candidate only) also the epoch's ``(rows, step, count)``
+    for `graph.BatchGraph`."""
     from rankfm_tpu_torch.ops import training
 
     plan = model.last_fit_plan_
@@ -965,6 +967,15 @@ def _engine_epoch(model, kind):
                 t[k].copy_(v)
         return ll
 
+    if batches:
+        make_rows, batch = training.epoch_parts(step, bs)
+
+        def one(t, rows, eta):
+            return batch(t, model._x_uf_dev, model._x_if_dev, hist, rows,
+                         eta, model.alpha, model.beta)[1]
+
+        return fn, {k: v.clone() for k, v in w.items()}, (
+            lambda e: make_rows(*cols, n, model.seed, e), one, n_pad // bs)
     return fn, {k: v.clone() for k, v in w.items()}
 
 
@@ -980,9 +991,9 @@ def _same_bytes(a, b):
 def test_graph_epoch_equals_eager_epoch(cuda, kind, features):
     """Three epochs through one captured graph and three eager epochs from
     copies of the same tables: equal to the byte, tables and ll; a replay
-    counts the launches its capture recorded."""
+    counts the launches and the batch steps its capture recorded."""
     from rankfm_tpu_torch import RankFM
-    from rankfm_tpu_torch.ops import graph
+    from rankfm_tpu_torch.ops import graph, training
 
     train, kw = _graph_case(features)
     m = RankFM(factors=8, loss="warp", max_samples=10, beta=0.1,
@@ -993,11 +1004,12 @@ def test_graph_epoch_equals_eager_epoch(cuda, kind, features):
     tg = {k: None if v is None else v.clone() for k, v in tables.items()}
     runner = graph.EpochGraph(fn, tg, cuda, kind, keep_graph=True)
     for epoch, eta in ((3, 0.1), (4, 0.07), (5, 0.05)):
-        before = (Counter(fused.LAUNCHES), Counter(scatter.LAUNCHES))
+        counters = (fused.LAUNCHES, scatter.LAUNCHES, training.STEPS)
+        before = [Counter(c) for c in counters]
         ll_g = runner(epoch, eta)
         # the capture at the first call counts nothing, the replay all
-        assert (Counter(fused.LAUNCHES) - before[0], Counter(
-            scatter.LAUNCHES) - before[1]) == runner.launches
+        assert tuple(Counter(c) - b for c, b in zip(counters, before)) == (
+            runner.launches)
         ll_e = fn(te, epoch, eta)
         torch.cuda.synchronize()
         assert _same_bytes(ll_g, ll_e)
@@ -1006,6 +1018,39 @@ def test_graph_epoch_equals_eager_epoch(cuda, kind, features):
                 assert _same_bytes(te[k], tg[k]), (epoch, k)
     assert sum(runner.launches[0 if kind == "fused" else 1].values()) > 0
     assert runner.stats["capture_s"] > 0 and _graph_nodes(runner.graph) > 0
+
+
+@pytest.mark.cuda
+def test_graph_of_one_batch_equals_eager_epoch(cuda):
+    """The candidate epoch as one captured batch replayed per batch
+    (`graph.BatchGraph`, as `RankFM` runs the XLA steps) and eager epochs
+    from copies of the same tables: equal to the byte, tables and ll, over
+    epochs whose rows differ; a replay counts one batch's launches and
+    steps per batch."""
+    from rankfm_tpu_torch import RankFM
+    from rankfm_tpu_torch.ops import graph, training
+
+    train, kw = _graph_case(False)
+    m = RankFM(factors=8, loss="warp", max_samples=10, beta=0.1,
+               use_fused=False, device="cuda").fit(train, epochs=1, **kw)
+    fn, tables, batches = _engine_epoch(m, "candidate", batches=True)
+    te = {k: None if v is None else v.clone() for k, v in tables.items()}
+    tg = {k: None if v is None else v.clone() for k, v in tables.items()}
+    runner = graph.BatchGraph(*batches, tg, cuda, "candidate")
+    for epoch, eta in ((3, 0.1), (4, 0.07), (5, 0.05)):
+        counters = (fused.LAUNCHES, scatter.LAUNCHES, training.STEPS)
+        before = [Counter(c) for c in counters]
+        ll_g = runner(epoch, eta)
+        assert sum((training.STEPS - before[2]).values()) == batches[2]
+        assert Counter(scatter.LAUNCHES) - before[1] == Counter(
+            {k: v * batches[2] for k, v in runner.launches[1].items()})
+        ll_e = fn(te, epoch, eta)
+        torch.cuda.synchronize()
+        assert _same_bytes(ll_g, ll_e)
+        for k in te:
+            if te[k] is not None:
+                assert _same_bytes(te[k], tg[k]), (epoch, k)
+    assert sum(runner.launches[1].values()) > 0
 
 
 def _graph_nodes(g):

@@ -180,3 +180,19 @@ def test_a_span_is_a_shared_no_op_without_a_profiler(monkeypatch):
     assert entered == ["rankfm.recommend", "rankfm.recommend.ids",
                        "rankfm.recommend.score", "rankfm.recommend.sync",
                        "rankfm.recommend.frame"]
+
+
+@pytest.mark.parametrize("engine", ["fused", "xla"])
+def test_the_history_builds_are_spans(profiled_fits, engine):
+    """``rankfm.fit.hist`` holds the device copy of the history CSR in
+    ingest and, in an XLA engine's epochs, the build of what its sampler
+    reads."""
+    model, spans = profiled_fits[engine]
+    assert _children(spans, "rankfm.fit.ingest") == ["rankfm.fit.hist"]
+    if model.last_fit_plan_.fused:
+        # the fused engine reads the pack built in `.prep`'s `.hist_pack`
+        assert "rankfm.fit.hist" not in _children(
+            spans, "rankfm.fit.epochs.fused")
+    else:
+        assert _children(spans, "rankfm.fit.epochs.candidate")[0] == (
+            "rankfm.fit.hist")
