@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py [--parent DIR | --only-updates | --only-host-half
                            | --only-mesh | --only-quality | --only-repro
-                           | --only-graphs | --only-topk
+                           | --only-graphs | --only-topk | --only-init
                            | --profiler-windows N]
 
 ``--only-updates`` stops after phase 4, ``--only-host-half`` runs phase 10
 alone, ``--only-mesh`` phase 11 after the single-device fit of phase 5,
 ``--only-quality`` phase 12 alone, ``--only-repro`` phase 13 alone,
 ``--only-graphs`` phase 14 alone, ``--only-topk`` phase 15 alone,
+``--only-init`` phase 16 alone,
 ``--profiler-windows N`` counts the ``torch.profiler`` traces that
 come back without device time in N short windows with and without the
 idle margin the script leaves in each; none prints a result line.
@@ -185,7 +186,18 @@ result line):
    (every slot's score gap within 1e-4, no seen item, two calls equal to
    the byte), then its time, host enqueue, device time and launches per
    call, its bound (f32 FMA), the plain version's time and, as a yardstick
-   the port never calls, ``matmul`` + ``masked_fill`` + ``torch.topk``.
+   the port never calls, ``matmul`` + ``masked_fill`` + ``torch.topk``;
+16. the initial tables' draw on the card (`ops.init.normal_pair`, three
+   launches around the host walk) at webscale's table sizes (100,000 and
+   909,936 rows x 64) and ML-1M's (6,040 and 3,706 x 20), sigma 0.1, at
+   two seeds: every float32 bit and the generator's state afterwards
+   against numpy's draw, then the draw's wall time, its plain version's
+   (numpy's draw, cast and copy to the card), each stage's time (device
+   time of the three kernels and the copies under ``torch.profiler``, the
+   host walk alone), the share of positions the walk resolved, and the
+   bound of the three kernels (the bytes they move, the instructions they
+   issue for the 128-bit stream arithmetic); then one ML-1M fit,
+   which must launch each kernel once.
 
 Each path runs with the launch counts set to 0 just before it and reads
 them just after (on each rank, on the mesh); the kernels' JSON adds the
@@ -203,6 +215,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -883,13 +896,15 @@ def launches_of(fused, scatter):
             "table_update_sorted": scatter.LAUNCHES["sorted"],
             "table_update_dense": scatter.LAUNCHES["dense"],
             "fused_chunk_wide": sum(n for nw, n in launches_by_nw(fused).items()
-                                    if nw >= WIDE_NW)}
+                                    if nw >= WIDE_NW),
+            "pcg_normal": init_launches()}
 
 
 def reset_launches(torch, fused, scatter):
     torch.cuda.synchronize()
     fused.LAUNCHES.clear()
     scatter.LAUNCHES.clear()
+    init_launches(clear=True)
 
 
 def check_lls(model, n, tag):
@@ -2607,7 +2622,8 @@ def graph_phase(torch, RankFM, fused, scatter, training, train, ic_data):
         out[tag] = graph_vs_eager(torch, fused, scatter, tag, fn, tables,
                                   batches)
     counts = launches_of(fused, scatter)
-    check(all(v > 0 for k, v in counts.items()),
+    # the engines run on tables made here: no initial draw
+    check(all(v > 0 for k, v in counts.items() if k != "pcg_normal"),
           f"phase 14 launches {counts}")
     return counts, out
 
@@ -2681,6 +2697,176 @@ TOPK_K = 10
 TOPK_CALLS = 50                # back-to-back calls a timing
 TOPK_KEYS = ("ms", "device_ms", "enqueue_us", "plain_ms", "library_ms",
              "bound_ms", "bound_by", "launches_per_call")
+
+# phase 16: table sizes (users, items, factors) of the initial draw, sigma
+# (the model's default), seeds (one past 2**31) and timed draws a timing
+INIT_SHAPES = (("webscale", 100_000, 909_936, 64),
+               ("ml1m", N_USERS, N_ITEMS, 20))
+INIT_SIGMA = 0.1
+INIT_SEEDS = (SEED + 16, 2**31 + 1616)
+INIT_REPS = 5
+INIT_KEYS = ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+             "slow_share")
+# instructions a second the card can issue: one warp instruction a clock
+# on each of an SM's four schedulers, 132 SMs at the 1.98 GHz boost clock
+# (NVIDIA H100 white paper, SXM5)
+PEAK_ISSUE = 132 * 4 * 32 * 1.98e9
+# instructions a lane issues, read from `cuobjdump -sass` of the sm_90a
+# build (nvcc 12.8): a position of each kernel's main loop (scan 235 for
+# an unrolled 4, compact 159 for an unrolled 2, emit 87), and a bit of a
+# lane's jump to its first position (the square-and-multiply loop, 87 to
+# 89; the stride of 32 steps folds into constants)
+LOOP_INSTR = {"scan": 235 / 4, "compact": 159 / 2, "emit": 87}
+JUMP_BIT_INSTR = 89
+
+
+def pcg_instructions(N, seg_words):
+    """The instructions the three kernels issue over ``N`` positions: each
+    steps every position once, and each lane first jumps to its start."""
+    lanes = -(-(-(-N // 32)) // seg_words) * 32
+    jump = (N.bit_length() + 1) * JUMP_BIT_INSTR
+    return N * sum(LOOP_INSTR.values()) + len(LOOP_INSTR) * lanes * jump
+
+
+def init_launches(clear=False):
+    """The initial draw's launches (`ops.init.LAUNCHES`), set to 0 when
+    ``clear``; 0 in a tree without them."""
+    mod = sys.modules.get("rankfm_tpu_torch.ops.init")
+    if mod is None or not hasattr(mod, "LAUNCHES"):
+        return 0
+    if clear:
+        mod.LAUNCHES.clear()
+    return sum(mod.LAUNCHES.values())
+
+
+def wall_ms(torch, fn, reps):
+    """Mean milliseconds of ``fn()`` on the host's clock, the device synced
+    after each call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def init_phase(torch, RankFM, dev, train):
+    """The initial tables' draw on the card (`init.normal_pair`) at
+    `INIT_SHAPES`: against numpy's draw bit for bit, then its time, its
+    plain version's, each stage's, and its bound; then an ML-1M fit's
+    launches. Returns ``{shape: record}``."""
+    from rankfm_tpu_torch.ops import init
+
+    out = {}
+    for name, U, I, F in INIT_SHAPES:
+        n0, n1 = U * F, I * F
+        T, N = n0 + n1, init.n_positions(n0 + n1)
+        slow = init.SLOW.copy()
+        for seed in INIT_SEEDS:
+            rng = np.random.default_rng(seed)
+            init_launches(clear=True)
+            a, b = init.normal_pair(rng.bit_generator, INIT_SIGMA, n0, n1,
+                                    dev)
+            torch.cuda.synchronize()
+            check(dict(init.LAUNCHES) == {"scan": 1, "compact": 1, "emit": 1},
+                  f"phase 16 {name}: launches {dict(init.LAUNCHES)}")
+            ref = np.random.default_rng(seed)
+            for got, n, table in ((a, n0, "v_u"), (b, n1, "v_i")):
+                want = ref.normal(0, INIT_SIGMA, n).astype(np.float32)
+                got = got.cpu().numpy()
+                differ = int((got.view(np.uint32) != want.view(np.uint32))
+                             .sum())
+                check(differ == 0, f"phase 16 {name} seed {seed}: {differ} "
+                      f"of {table}'s {n} values differ from numpy's")
+            check(rng.bit_generator.state == ref.bit_generator.state,
+                  f"phase 16 {name} seed {seed}: the generator's state")
+        d = {k: init.SLOW[k] - slow[k] for k in ("wedge", "tail", "words")}
+        check(d["tail"] > 0 or name != "webscale",
+              f"phase 16 {name}: no tail attempt in {d}")
+        seed = INIT_SEEDS[0]
+
+        def card():
+            return init.normal_pair(np.random.default_rng(seed).bit_generator,
+                                    INIT_SIGMA, n0, n1, dev)
+
+        def plain():
+            g = np.random.default_rng(seed)
+            return tuple(torch.from_numpy(
+                g.normal(0, INIT_SIGMA, n).astype(np.float32)).to(dev)
+                for n in (n0, n1))
+
+        card()
+        ms = wall_ms(torch, card, INIT_REPS)
+        plain_ms = wall_ms(torch, plain, INIT_REPS)
+        # the stages one by one: the scan, the compaction and the records'
+        # copy; the mask's copy to the host; the walk; on the host's clock
+        st = np.random.default_rng(seed).bit_generator.state["state"]
+        halves = init._halves(st["state"], st["inc"])
+        here = torch.device("cuda", torch.cuda.current_device())
+        split = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mask_dev, rec = init._scan_card(halves, N, here)
+        split["scan_compact_records_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        mask = mask_dev.cpu().numpy().view(np.uint32)
+        split["mask_to_host_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        init.walk(rec, mask, N, T, INIT_SIGMA, st["state"], st["inc"])
+        split["walk_ms"] = 1e3 * (time.perf_counter() - t0)
+        # device time of each kernel and copy of one whole draw
+        _, busy, rows = profile_call(torch, card, top=None)
+        check(busy is not None, "torch.profiler traced no device time")
+        kernels = {k: [(n, t) for n, t, _ in rows
+                       if re.search(rf"(^|::){k}\b", n)]
+                   for k in ("scan_kernel", "compact_kernel", "emit_kernel")}
+        check(all(len(v) == 1 for v in kernels.values()),
+              f"phase 16 {name}: traced kernels {[r[0] for r in rows]}")
+        device_ms = sum(v[0][1] for v in kernels.values())
+        m = len(rec)
+        nw = -(-N // 32)
+        segs = -(-nw // init.SEG_WORDS)
+        # the tables written, the mask written once and read twice, the
+        # records, the segment counts and their sums
+        nbytes = 4 * T + 3 * 4 * nw + 32 * m + 4 * segs + 2 * 8 * segs
+        ops = pcg_instructions(N, init.SEG_WORDS)
+        t_ops, t_bytes = ops / PEAK_ISSUE, nbytes / PEAK_BYTES
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_by = "instructions" if t_ops > t_bytes else "bytes"
+        rec_out = {"ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "slow_share": (d["wedge"] + d["tail"]) / d["words"],
+                   "tail_share": d["tail"] / d["words"],
+                   "words_per_draw": d["words"] / (len(INIT_SEEDS) * T),
+                   "positions": N, "records": m, "bytes": nbytes,
+                   "instructions": ops, "busy_ms": 1e3 * busy,
+                   **split,
+                   "by_kernel": [(n, t, c) for n, t, c in rows]}
+        print(f"init {name} ({U:,} + {I:,} rows x {F}): card draw "
+              f"{ms:.3f} ms vs numpy's draw, cast and copy {plain_ms:.3f} ms "
+              f"({plain_ms / ms:.1f}x); three kernels {device_ms:.4f} ms on "
+              f"the device, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({100 * bound_ms / device_ms:.1f}% reached); scan + compact "
+              f"+ records' copy {split['scan_compact_records_ms']:.3f} ms, "
+              f"mask to host {split['mask_to_host_ms']:.3f} ms, walk "
+              f"{split['walk_ms']:.3f} ms; {m:,} records of {N:,} positions, "
+              f"walk resolved {100 * rec_out['slow_share']:.3f}% of the "
+              f"words (tail {100 * rec_out['tail_share']:.4f}%), "
+              f"{rec_out['words_per_draw']:.5f} words a draw ({CARD})",
+              flush=True)
+        for n, t, c in rows:
+            print(f"  {n}: {t:.4f} ms over {c} record(s)", flush=True)
+        out[name] = rec_out
+    # a fit's own launches: one draw of v_u and v_i, three kernels
+    init_launches(clear=True)
+    draws = init.DRAWS.copy()
+    RankFM(factors=20, loss="warp", max_samples=20,
+           device="cuda").fit(train, epochs=1)
+    check(dict(init.LAUNCHES) == {"scan": 1, "compact": 1, "emit": 1},
+          f"phase 16: an ML-1M fit launched {dict(init.LAUNCHES)}")
+    check(init.DRAWS - draws == {("card", "v_u"): 1, ("card", "v_i"): 1},
+          f"phase 16: an ML-1M fit drew {init.DRAWS - draws}")
+    return out
 
 
 def topk_inputs(torch, dev, rng, B, U, I, F, n_if, seen):
@@ -2893,6 +3079,9 @@ def run(args):
     if args.only_topk:
         topk_phase(torch, dev)
         return 0
+    if args.only_init:
+        init_phase(torch, RankFM, dev, train)
+        return 0
     if args.times_of:
         # phases 3, 4, 5, 6 and 9 of another tree, through what both trees
         # have
@@ -2977,6 +3166,9 @@ def run(args):
 
     # 15. the filtered top-N kernel at the serve cells' request shapes
     tk = topk_phase(torch, dev)
+
+    # 16. the initial tables' draw at webscale's and ML-1M's sizes
+    pn = init_phase(torch, RankFM, dev, train)
     if args.parent:
         parents.append(tree_times(args.parent))
         print_parent_table(parents, b1_times, up_times, tm_ic["candidate"],
@@ -3032,6 +3224,14 @@ def run(args):
          "max_gap": max(r["max_gap"] for r in tk.values()),
          **{k: tk["instacart"][k] for k in TOPK_KEYS},
          "ml1m": {k: tk["ml1m"][k] for k in TOPK_KEYS}},
+        # `plain_ms`: numpy's draw, its cast and the copy to the card, the
+        # CPU model's path
+        {"name": "pcg_normal", "route": "cuda",
+         "source": "rankfm_tpu_torch/csrc/pcg_normal.cu", "replaces": None,
+         "launches": total["pcg_normal"],
+         "mesh_launches": mesh_counts["pcg_normal"],
+         **{k: pn["webscale"][k] for k in INIT_KEYS},
+         "ml1m": {k: pn["ml1m"][k] for k in INIT_KEYS}},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
@@ -3068,6 +3268,8 @@ def main():
                     help="phases 1, 2 and 14 only; prints no result line")
     ap.add_argument("--only-topk", action="store_true",
                     help="phases 1, 2 and 15 only; prints no result line")
+    ap.add_argument("--only-init", action="store_true",
+                    help="phases 1, 2 and 16 only; prints no result line")
     ap.add_argument("--deterministic-fits", action="store_true",
                     help="one fit of each engine under "
                          "torch.use_deterministic_algorithms(True) (phase 13 "

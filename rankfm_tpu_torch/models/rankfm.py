@@ -45,6 +45,7 @@ from rankfm_tpu_torch import native
 from rankfm_tpu_torch.models.planner import FitSpec, plan_fit
 from rankfm_tpu_torch.ops import fused as fused_mod
 from rankfm_tpu_torch.ops import graph as graph_mod
+from rankfm_tpu_torch.ops import init
 from rankfm_tpu_torch.ops import scoring, topk, training
 from rankfm_tpu_torch.ops.negatives import build_bitmap_words
 from rankfm_tpu_torch.parallel.fused import make_fused_dp_epoch_fn
@@ -823,7 +824,8 @@ class RankFM:
 
         self._init_interactions(interactions, sample_weight)
         self._init_features(user_features, item_features)
-        self._init_weights(user_features, item_features)
+        with observe.span("rankfm.fit.init"):
+            self._init_weights(user_features, item_features)
 
     def _init_interactions(self, interactions, sample_weight):
         """map new interactions to the existing internal indexes
@@ -949,30 +951,40 @@ class RankFM:
         """initialize model weights: biases zero, factors ~ N(0, sigma),
         feature factors ~ N(0, (alpha/beta)*sigma) when features are
         supplied else zero. The draws come from a generator seeded with
-        ``self.seed``, so they equal `rankfm_tpu`'s bit for bit."""
+        ``self.seed``, so they equal `rankfm_tpu`'s bit for bit. On a CUDA
+        device the card draws ``v_u`` and ``v_i`` (`ops.init.normal_pair`,
+        the same float32 values); the feature tables, and every table on
+        the CPU, are numpy's draws on the host."""
 
         U, I, F = len(self.user_idx), len(self.item_idx), self.factors
         P, Q = self.x_uf.shape[1], self.x_if.shape[1]
         rng = np.random.default_rng(self.seed)
 
-        w_i = np.zeros(I, dtype=np.float32)
-        w_if = np.zeros(Q, dtype=np.float32)
-        v_u = rng.normal(0, self.sigma, (U, F)).astype(np.float32)
-        v_i = rng.normal(0, self.sigma, (I, F)).astype(np.float32)
+        w = {"w_i": np.zeros(I, dtype=np.float32),
+             "w_if": np.zeros(Q, dtype=np.float32)}
+        path = "card" if self.device.type == "cuda" else "host"
+        if path == "card":
+            v_u, v_i = init.normal_pair(rng.bit_generator, self.sigma,
+                                        U * F, I * F, self.device)
+            w["v_u"], w["v_i"] = v_u.view(U, F), v_i.view(I, F)
+        else:
+            w["v_u"] = rng.normal(0, self.sigma, (U, F)).astype(np.float32)
+            w["v_i"] = rng.normal(0, self.sigma, (I, F)).astype(np.float32)
+        init.DRAWS[(path, "v_u")] += 1
+        init.DRAWS[(path, "v_i")] += 1
 
         feat_scale = (self.alpha / self.beta) * self.sigma
-        if user_features is not None:
-            v_uf = rng.normal(0, feat_scale, (P, F)).astype(np.float32)
-        else:
-            v_uf = np.zeros((P, F), dtype=np.float32)
-        if item_features is not None:
-            v_if = rng.normal(0, feat_scale, (Q, F)).astype(np.float32)
-        else:
-            v_if = np.zeros((Q, F), dtype=np.float32)
+        for name, given, n in (("v_uf", user_features, P),
+                               ("v_if", item_features, Q)):
+            if given is not None:
+                w[name] = rng.normal(0, feat_scale, (n, F)).astype(np.float32)
+                init.DRAWS[("host", name)] += 1
+            else:
+                w[name] = np.zeros((n, F), dtype=np.float32)
 
-        w = {"w_i": w_i, "w_if": w_if, "v_u": v_u, "v_i": v_i,
-             "v_uf": v_uf, "v_if": v_if}
-        self._w = {k: torch.from_numpy(w[k]).to(self.device) for k in _WEIGHT_NAMES}
+        self._w = {k: w[k] if isinstance(w[k], torch.Tensor)
+                   else torch.from_numpy(w[k]).to(self.device)
+                   for k in _WEIGHT_NAMES}
 
     def _assert_finite(self):
         """divergence guard: name the first non-finite weight tensor"""

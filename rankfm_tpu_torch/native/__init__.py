@@ -10,7 +10,11 @@ returns None, every ingest function here returns None and the callers take
 the numpy / pandas path, which gives the same arrays. That is a convenience
 of the host code; nothing on a device depends on it. The oracle is test and
 validation infrastructure (`tests/torch_parity_common.py`,
-`chip_smoke.py`); no training path calls it.
+`chip_smoke.py`); no training path calls it. The normal walk
+(``normal_walk.cpp``) is the host half of the card's initial draws
+(`rankfm_tpu_torch.ops.init`), built with ``-ffp-contract=off`` so that its
+multiplies and adds round apart, as numpy's do; without it the card's draw
+raises.
 """
 
 from __future__ import annotations
@@ -28,7 +32,10 @@ from rankfm_tpu_torch.ops._build import BUILD_DIR
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "ingest.cpp")
 _ORACLE_SRC = os.path.join(_HERE, "oracle.cpp")
+_WALK_SRC = os.path.join(_HERE, "normal_walk.cpp")
+_ZIGGURAT_H = os.path.join(os.path.dirname(_HERE), "csrc", "ziggurat.h")
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+_WALK_FLAGS = _FLAGS + ("-ffp-contract=off",)
 
 MAP_REGIMES = ("bsearch", "table", "hash")   # `rfm_map_ids_regime`'s codes
 
@@ -39,23 +46,27 @@ _tried = False
 build_error = None
 
 
-def _compile_and_load(src, stem):
+def _compile_and_load(src, stem, flags=_FLAGS, deps=()):
     """Compile ``src`` (if needed) and CDLL it.
 
-    The binary's name is keyed on a content hash of the source and the
-    flags: a fresh checkout (where mtimes are meaningless) always rebuilds
-    for ITS source and ITS machine — binaries are never shipped (they are
-    built -march=native). g++ writes to a temp file that is atomically
-    renamed into place, so concurrent builds (pytest-xdist workers, a test
-    plus a script) never CDLL a partially-written ELF."""
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    The binary's name is keyed on a content hash of the source, the headers
+    it includes (``deps``) and the flags: a fresh checkout (where mtimes are
+    meaningless) always rebuilds for ITS source and ITS machine — binaries
+    are never shipped (they are built -march=native). g++ writes to a temp
+    file that is atomically renamed into place, so concurrent builds
+    (pytest-xdist workers, a test plus a script) never CDLL a
+    partially-written ELF."""
+    h = hashlib.sha256()
+    for path in (src, *deps):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(flags).encode())
     path = os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         try:
-            subprocess.run(["g++", *_FLAGS, "-o", tmp, src],
+            subprocess.run(["g++", *flags, "-o", tmp, src],
                            check=True, capture_output=True)
             os.replace(tmp, path)
         finally:
@@ -298,3 +309,83 @@ def build_csr(users, items, num_users):
     nnz = lib.rfm_build_csr(_ptr(users), _ptr(items), len(users),
                             num_users, _ptr(offsets), _ptr(flat))
     return offsets, flat[:nnz].copy()
+
+
+_walk_lock = threading.Lock()
+_walk_lib = None
+
+
+def get_walk():
+    """Load (building if necessary) the normal walk (normal_walk.cpp);
+    raises RuntimeError with the compiler's message if it cannot."""
+    global _walk_lib
+    if _walk_lib is not None:
+        return _walk_lib
+    with _walk_lock:
+        if _walk_lib is not None:
+            return _walk_lib
+        try:
+            lib = _compile_and_load(_WALK_SRC, "normal_walk", _WALK_FLAGS,
+                                    (_ZIGGURAT_H,))
+        except (OSError, subprocess.CalledProcessError) as e:
+            why = (e.stderr.decode(errors="replace")
+                   if isinstance(e, subprocess.CalledProcessError) else repr(e))
+            raise RuntimeError(f"native normal walk unavailable: {why}") from e
+        lib.rfm_ziggurat_tables.restype = None
+        lib.rfm_ziggurat_tables.argtypes = [ctypes.c_void_p] * 3
+        lib.rfm_normal_walk.restype = None
+        lib.rfm_normal_walk.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_double]
+            + [ctypes.c_uint64] * 4 + [ctypes.c_int64]
+            + [ctypes.c_void_p] * 4)
+        _walk_lib = lib
+    return _walk_lib
+
+
+def ziggurat_tables():
+    """numpy's ziggurat tables ``(ki uint64, wi float64, fi float64)``, 256
+    entries each, as the walk and the card hold them."""
+    ki = np.empty(256, dtype=np.uint64)
+    wi = np.empty(256, dtype=np.float64)
+    fi = np.empty(256, dtype=np.float64)
+    get_walk().rfm_ziggurat_tables(_ptr(ki), _ptr(wi), _ptr(fi))
+    return ki, wi, fi
+
+
+def normal_walk(rec, mask, n_pos, n_draws, sigma, state, inc, seg_words):
+    """Resolve, in stream order, the positions one word does not decide
+    (``rec`` int64 ``[m, 4]``: position and its three words) among the first
+    ``n_pos`` of the PCG64 stream ``(state, inc)``; ``mask`` (uint32, the
+    one-word bits) becomes the emit mask in place.
+
+    Returns ``(base, idx, val, stats)``: the emits before each segment of
+    ``seg_words`` mask words (int64), the rank and float32 value of each
+    emit resolved here, and a dict ``emitted`` (emits in the ``n_pos``
+    positions, at most ``n_draws``), ``done`` (``n_draws`` reached),
+    ``words`` (words consumed when done, else the first position no attempt
+    has read), ``wedge`` and ``tail`` (attempts resolved here).
+    """
+    lib = get_walk()
+    rec = np.ascontiguousarray(rec, dtype=np.int64)
+    m = rec.shape[0]
+    nw = (n_pos + 31) // 32
+    # the library indexes both by these sizes, unchecked
+    if (rec.shape != (m, 4) or mask.dtype != np.uint32 or mask.shape != (nw,)
+            or not (mask.flags.c_contiguous and mask.flags.writeable)
+            or seg_words < 1):
+        raise ValueError("normal_walk: inconsistent shapes")
+    base = np.empty(max(-(-nw // seg_words), 1), dtype=np.int64)
+    idx = np.empty(max(m, 1), dtype=np.int64)
+    val = np.empty(max(m, 1), dtype=np.float32)
+    stats = np.zeros(6, dtype=np.int64)
+    mask64 = (1 << 64) - 1
+    lib.rfm_normal_walk(_ptr(rec), m, _ptr(mask), n_pos, n_draws, sigma,
+                        state >> 64, state & mask64, inc >> 64, inc & mask64,
+                        seg_words, _ptr(base), _ptr(idx), _ptr(val),
+                        _ptr(stats))
+    n = int(stats[0])
+    return base, idx[:n], val[:n], {
+        "emitted": int(stats[1]), "words": int(stats[2]),
+        "wedge": int(stats[3]), "tail": int(stats[4]),
+        "done": bool(stats[5])}

@@ -5,9 +5,9 @@ library of its own with a plain C interface, loaded with ``ctypes``; all
 compilers run at the same time. ``fused_chunk.cu`` becomes four libraries,
 one per instantiation of its kernel (side features of users / of items),
 because one compiler would build the four one after another. The libraries
-go into ``rankfm_tpu_torch/_build/<hash>/``, keyed by the sources and the
-flags, so an edited source rebuilds and an unchanged one loads at once. A
-failed build raises; nothing falls back.
+go into ``rankfm_tpu_torch/_build/<hash>/``, keyed by the sources, the
+headers they include and the flags, so an edited source rebuilds and an
+unchanged one loads at once. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,13 +23,17 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "fused_chunk.cu",
            _PKG / "csrc" / "table_update.cu",
-           _PKG / "csrc" / "topk_select.cu")
+           _PKG / "csrc" / "topk_select.cu",
+           _PKG / "csrc" / "pcg_normal.cu")
+# headers the sources include, part of the content key
+HEADERS = (_PKG / "csrc" / "ziggurat.h",)
 # library name -> (source, its own nvcc flags)
 LIBS = {f"fused_chunk_{uf}{it}": (SOURCES[0], (f"-DRFM_UF={uf}",
                                                f"-DRFM_IF={it}"))
         for uf in (0, 1) for it in (0, 1)}
 LIBS["table_update"] = (SOURCES[1], ())
 LIBS["topk_select"] = (SOURCES[2], ())
+LIBS["pcg_normal"] = (SOURCES[3], ())
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,6 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 # source stem -> {function: argtypes}; every function returns int, and every
 # library also exports `rfm_error_string`
 _ARGTYPES = {
@@ -63,6 +69,15 @@ _ARGTYPES = {
         # I, F, P, Q, B, k, S, scratch, out_i, out_s, stream
         "rfm_topk_select": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    },
+    "pcg_normal": {
+        # state and increment (hi, lo), N, seg_words, mask, cnt, stream
+        "rfm_pcg_scan": [_U, _U, _U, _U, _L, _I, _P, _P, _P],
+        # ..., N, seg_words, mask, off, rec, stream
+        "rfm_pcg_compact": [_U, _U, _U, _U, _L, _I, _P, _P, _P, _P],
+        # ..., N, seg_words, mask, base, T, n0, sigma, out0, out1, stream
+        "rfm_pcg_emit": [_U, _U, _U, _U, _L, _I, _P, _P, _L, _L,
+                         ctypes.c_double, _P, _P, _P],
     },
 }
 
@@ -91,7 +106,7 @@ def nvcc_path():
 
 def _digest():
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(repr(sorted((k, v[0].name, v[1]) for k, v in LIBS.items()))

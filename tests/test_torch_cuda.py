@@ -1,6 +1,6 @@
 """The kernels on the card (the fused chunk step, with and without side
-features, the sorted and dense table updates, filtered top-N retrieval),
-the build and dispatch rules around them, and the host half on a CUDA model (checkpoints between
+features, the sorted and dense table updates, filtered top-N retrieval,
+the initial tables' normal draws, numpy's bit for bit), the build and dispatch rules around them, and the host half on a CUDA model (checkpoints between
 card and CPU, the record cache, the ALS baseline).
 
 Tests marked ``cuda`` need an NVIDIA GPU with nvcc and skip without one;
@@ -31,6 +31,7 @@ import torch
 
 from rankfm_tpu_torch.ops import _build
 from rankfm_tpu_torch.ops import fused
+from rankfm_tpu_torch.ops import init
 from rankfm_tpu_torch.ops import scatter
 from rankfm_tpu_torch.ops import topk
 
@@ -864,9 +865,10 @@ def test_build_is_keyed_by_content(tmp_path, monkeypatch):
     nvcc.chmod(0o755)
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    # four of fused_chunk.cu, one of table_update.cu, one of topk_select.cu
+    # four of fused_chunk.cu, one of table_update.cu, one of topk_select.cu,
+    # one of pcg_normal.cu
     n_lib = len(_build.LIBS)
-    assert n_lib == 6 and {src for src, _ in _build.LIBS.values()} \
+    assert n_lib == 7 and {src for src, _ in _build.LIBS.values()} \
         == set(_build.SOURCES)
     first = _build.build()
     assert _build.build() == first and first.exists()
@@ -875,6 +877,24 @@ def test_build_is_keyed_by_content(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.build() != first
     assert calls.read_text().count("x") == 2 * n_lib
+
+
+def test_build_is_keyed_by_its_headers(tmp_path, monkeypatch):
+    """A header the sources include is part of the content key: an edited
+    ``ziggurat.h`` rebuilds every library."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\n')
+    nvcc.chmod(0o755)
+    assert [h.name for h in _build.HEADERS] == ["ziggurat.h"]
+    header = tmp_path / "ziggurat.h"
+    header.write_bytes(_build.HEADERS[0].read_bytes())
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "HEADERS", (header,))
+    first = _build.build()
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.build() != first
 
 
 # ---------------------------------------------------------------------------
@@ -1713,3 +1733,134 @@ def test_topk_launch_plan(B, I, F, k, n_sm, S):
     assert S <= Ip // 128 and S * (k * 8 + 4) <= topk.MERGE_BYTES
     assert words == (Ip + Bp) * Kp + Ip + 2 * B * S * k
     assert topk.shared_bytes(topk.K_MAX) <= 232_448   # a block's limit
+
+
+# ---------------------------------------------------------------------------
+# the initial factor tables drawn on the card (`ops/init.py`,
+# `csrc/pcg_normal.cu`): numpy's draw bit for bit
+# ---------------------------------------------------------------------------
+
+def _f32_bits(a):
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.uint32).ravel()
+
+
+def _slow_since(before):
+    return {k: init.SLOW[k] - before[k] for k in ("wedge", "tail", "words")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1492, 7, 2**31 + 12345])
+def test_card_draw_equals_numpy_at_webscale(cuda, seed):
+    """``v_u`` then ``v_i`` of the webscale configuration (100,000 and
+    909,936 rows, F 64, sigma 0.1) equal numpy's float32 draw, the
+    generator ends where numpy's ends, and the walk resolved the wedge and
+    tail attempts (~1.4% and ~0.03% of the stream's words)."""
+    U, I, F = 100_000, 909_936, 64
+    rng = np.random.default_rng(seed)
+    before = init.SLOW.copy()
+    a, b = init.normal_pair(rng.bit_generator, 0.1, U * F, I * F, cuda)
+    assert a.is_cuda and b.is_cuda
+    ref = np.random.default_rng(seed)
+    np.testing.assert_array_equal(
+        _f32_bits(a), _f32_bits(ref.normal(0, 0.1, (U, F)).astype(np.float32)))
+    np.testing.assert_array_equal(
+        _f32_bits(b), _f32_bits(ref.normal(0, 0.1, (I, F)).astype(np.float32)))
+    assert rng.bit_generator.state == ref.bit_generator.state
+    d = _slow_since(before)
+    assert d["tail"] > 0 and 0.010 < d["wedge"] / d["words"] < 0.020
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n0,n1", [(1, 0), (5, 17), (1000, 2049),
+                                   (0, 70_000), (64 * 2048 + 3, 5)])
+def test_card_draw_ragged_sizes(cuda, n0, n1):
+    """Sizes off every segment and word boundary."""
+    rng = np.random.default_rng(n0 + 3 * n1)
+    a, b = init.normal_pair(rng.bit_generator, 0.01, n0, n1, cuda)
+    ref = np.random.default_rng(n0 + 3 * n1)
+    np.testing.assert_array_equal(
+        _f32_bits(a), _f32_bits(ref.normal(0, 0.01, n0).astype(np.float32)))
+    np.testing.assert_array_equal(
+        _f32_bits(b), _f32_bits(ref.normal(0, 0.01, n1).astype(np.float32)))
+    assert rng.bit_generator.state == ref.bit_generator.state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n0,n1,n_pos", [(40_000, 30_000, 50_000),
+                                         (300, 200, 1)])
+def test_card_draw_short_range_raises(cuda, monkeypatch, n0, n1, n_pos):
+    """A range of positions that falls short of the draws raises, naming
+    the range, and leaves the generator where it was."""
+    monkeypatch.setattr(init, "n_positions", lambda n: n_pos)
+    rng = np.random.default_rng(n0 + 3 * n1)
+    st = rng.bit_generator.state
+    with pytest.raises(RuntimeError, match=f"{n_pos} stream positions hold"):
+        init.normal_pair(rng.bit_generator, 0.01, n0, n1, cuda)
+    assert rng.bit_generator.state == st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["ml1m", "instacart"])
+def test_model_init_on_the_card_equals_numpys(cuda, shape):
+    """`RankFM._init_all` on the card at the ML-1M shape (6,040 x 3,706,
+    F 20) and the featured Instacart shape (10,000 x 33,362, F 50, 21 item
+    feature columns, ``v_if`` drawn on the host after ``v_i``): every table
+    equals numpy's draw, and the draws are counted by path."""
+    import pandas as pd
+
+    from rankfm_tpu_torch import RankFM
+
+    U, I, F, Q = {"ml1m": (6040, 3706, 20, 0),
+                  "instacart": (10_000, 33_362, 50, 21)}[shape]
+    n = max(U, I)
+    df = pd.DataFrame({"u": np.arange(n) % U, "i": np.arange(n) % I})
+    feats = None
+    if Q:
+        feats = pd.DataFrame({"i": np.arange(I), **{
+            f"d{k}": (np.arange(I) % Q == k).astype(np.float32)
+            for k in range(Q)}})
+    model = RankFM(factors=F, loss="warp", device="cuda", seed=2**31 + 5)
+    draws, slow = init.DRAWS.copy(), init.SLOW.copy()
+    model._init_all(df, item_features=feats)
+    ref = np.random.default_rng(2**31 + 5)
+    want = {"v_u": ref.normal(0, model.sigma, (U, F)),
+            "v_i": ref.normal(0, model.sigma, (I, F))}
+    if Q:
+        want["v_if"] = ref.normal(0, model.alpha / model.beta * model.sigma,
+                                  (Q, F))
+    for k, v in want.items():
+        assert model._w[k].is_cuda
+        np.testing.assert_array_equal(_f32_bits(model._w[k]),
+                                      _f32_bits(v.astype(np.float32)), k)
+    counted = init.DRAWS - draws
+    assert counted == {("card", "v_u"): 1, ("card", "v_i"): 1,
+                       **({("host", "v_if"): 1} if Q else {})}
+    assert _slow_since(slow)["wedge"] > 0
+
+
+@pytest.mark.cuda
+def test_card_fit_equals_the_fit_from_numpys_tables(cuda, monkeypatch):
+    """A fit whose tables the card drew and the same fit started from
+    numpy's tables (the draw swapped for numpy's on the host) end with
+    equal weights and log-likelihoods, to the byte."""
+    from rankfm_tpu_torch import RankFM
+
+    def numpy_pair(bit_generator, sigma, n0, n1, device):
+        g = np.random.Generator(bit_generator)
+        return tuple(torch.from_numpy(g.normal(0, sigma, n).astype(
+            np.float32)).to(device) for n in (n0, n1))
+
+    rng = np.random.default_rng(8)
+    users = np.repeat(np.arange(600), 25)
+    train = np.stack([users, rng.integers(0, 2500, len(users))], 1)
+    cfg = dict(factors=12, loss="warp", max_samples=10,
+               learning_schedule="invscaling", device="cuda", seed=23)
+    card = RankFM(**cfg).fit(train, epochs=3)
+    monkeypatch.setattr(init, "normal_pair", numpy_pair)
+    host = RankFM(**cfg).fit(train, epochs=3)
+    for k, v in card._weights.items():
+        assert np.array_equal(v, host._weights[k]), k
+    assert ([r["log_likelihood"] for r in card.training_log_]
+            == [r["log_likelihood"] for r in host.training_log_])

@@ -186,9 +186,11 @@ def test_a_span_is_a_shared_no_op_without_a_profiler(monkeypatch):
 def test_the_history_builds_are_spans(profiled_fits, engine):
     """``rankfm.fit.hist`` holds the device copy of the history CSR in
     ingest and, in an XLA engine's epochs, the build of what its sampler
-    reads."""
+    reads; ``rankfm.fit.init``, the draw of the initial tables, follows it
+    in ingest."""
     model, spans = profiled_fits[engine]
-    assert _children(spans, "rankfm.fit.ingest") == ["rankfm.fit.hist"]
+    assert _children(spans, "rankfm.fit.ingest") == [
+        "rankfm.fit.hist", "rankfm.fit.init"]
     if model.last_fit_plan_.fused:
         # the fused engine reads the pack built in `.prep`'s `.hist_pack`
         assert "rankfm.fit.hist" not in _children(
